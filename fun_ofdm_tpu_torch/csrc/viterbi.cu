@@ -1,0 +1,168 @@
+// K=7 rate-1/2 soft-decision Viterbi (polys 121, 91) for Hopper, sm_90a.
+//
+// Replaces the TPU Pallas kernels of fun_ofdm_tpu/ops/viterbi_pallas.py:
+// the forward add-compare-select kernels `_acs_kernel_r4` (radix 4) and
+// `_acs_kernel` (radix 2), and the survivor chainback kernels
+// `_chainback_kernel_r4` and `_chainback_kernel`, all driven by
+// `_decode_tiles`. The output is bit-exact with them and with the plain
+// twin in fun_ofdm_tpu_torch/ops/viterbi.py (u8 metric semantics carried
+// in int32, saturation at 255, renormalisation when state 0 exceeds 210,
+// ties to the high-half path, per-frame even step counts, exact or
+// uniform init, bit n read at step n + 6).
+//
+// What bounds it on this card: each frame is a serial chain of ~12k
+// dependent trellis steps (a 1500-byte frame), and the dense capture's
+// 512 frames give only ~4 warps per SM on the H100's 132 SMs, so the ACS
+// is bound by the latency of one step's dependency chain, not by
+// arithmetic or bytes (it reads 8 bytes and writes 8 bytes per frame and
+// step: ~100 MB in all). The design keeps that chain short: one warp per
+// frame, two states per lane, the 64 metrics in registers, the previous
+// step's metrics fetched with four independent warp shuffles, the 64
+// decisions packed into one 64-bit word by two ballots, the
+// renormalisation minimum by one warp reduction, and the soft pairs of
+// 32 steps loaded in one coalesced read and handed out by shuffles. No
+// shared memory and no block barrier on the step path. The chainback is
+// one thread per frame walking the decision words newest-first; the
+// words of a step for consecutive frames are adjacent ((T, B) layout), so
+// a warp's loads coalesce, and eight steps' loads are issued ahead of
+// their use. Time-parallel (block-overlap) decoding and more frames per
+// SM are later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPoly0 = 121;
+constexpr int kPoly1 = 91;
+constexpr int kTail = 6;  // K - 1
+
+__device__ __forceinline__ bool parity_of(int x) { return __popc(x) & 1; }
+
+// One warp per frame. Lane l holds the metrics of states l ("lo") and
+// l + 32 ("hi"). New state s comes from butterfly j = s >> 1, i.e. from
+// old states j and j + 32; lane l's new states l and l + 32 use
+// butterflies l >> 1 and 16 + (l >> 1).
+__global__ void __launch_bounds__(32)
+acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
+           const int* __restrict__ init, unsigned long long* __restrict__ dec,
+           int batch, int soft_stride, int total_steps) {
+  const int frame = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int2* pairs =
+      reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride);
+  const int n_steps = steps[frame];
+
+  const int j_lo = lane >> 1;
+  const int j_hi = 16 + (lane >> 1);
+  const bool odd = lane & 1;
+  const bool e0_lo = parity_of((2 * j_lo) & kPoly0);
+  const bool e1_lo = parity_of((2 * j_lo) & kPoly1);
+  const bool e0_hi = parity_of((2 * j_hi) & kPoly0);
+  const bool e1_hi = parity_of((2 * j_hi) & kPoly1);
+
+  int m_lo = (lane == 0 && init[frame] == 1) ? 0 : 63;
+  int m_hi = 63;
+
+  for (int t0 = 0; t0 < n_steps; t0 += 32) {
+    int2 mine = make_int2(0, 0);
+    if (t0 + lane < n_steps) mine = pairs[t0 + lane];
+    const int n_in = min(32, n_steps - t0);
+    for (int i = 0; i < n_in; ++i) {
+      const int s0 = __shfl_sync(kFull, mine.x, i);
+      const int s1 = __shfl_sync(kFull, mine.y, i);
+      const int old_lo_a = __shfl_sync(kFull, m_lo, j_lo);
+      const int old_hi_a = __shfl_sync(kFull, m_hi, j_lo);
+      const int old_lo_b = __shfl_sync(kFull, m_lo, j_hi);
+      const int old_hi_b = __shfl_sync(kFull, m_hi, j_hi);
+
+      const int t_a = ((e0_lo ? 255 - s0 : s0) + (e1_lo ? 255 - s1 : s1) + 1) >> 3;
+      const int t_b = ((e0_hi ? 255 - s0 : s0) + (e1_hi ? 255 - s1 : s1) + 1) >> 3;
+      // even new state: (lo + t, hi + 63 - t); odd: (lo + 63 - t, hi + t)
+      const int c_lo_a = min(old_lo_a + (odd ? 63 - t_a : t_a), 255);
+      const int c_hi_a = min(old_hi_a + (odd ? t_a : 63 - t_a), 255);
+      const int c_lo_b = min(old_lo_b + (odd ? 63 - t_b : t_b), 255);
+      const int c_hi_b = min(old_hi_b + (odd ? t_b : 63 - t_b), 255);
+      const bool d_a = c_hi_a <= c_lo_a;
+      const bool d_b = c_hi_b <= c_lo_b;
+      int n_lo = d_a ? c_hi_a : c_lo_a;
+      int n_hi = d_b ? c_hi_b : c_lo_b;
+
+      const unsigned w_lo = __ballot_sync(kFull, d_a);
+      const unsigned w_hi = __ballot_sync(kFull, d_b);
+      if (lane == i) {
+        dec[(size_t)(t0 + i) * batch + frame] =
+            ((unsigned long long)w_hi << 32) | w_lo;
+      }
+      if (__shfl_sync(kFull, n_lo, 0) > 210) {
+        const int m = __reduce_min_sync(kFull, min(n_lo, n_hi));
+        n_lo -= m;
+        n_hi -= m;
+      }
+      m_lo = n_lo;
+      m_hi = n_hi;
+    }
+  }
+  // steps past the frame's trellis record zero decisions
+  for (int t = n_steps + lane; t < total_steps; t += 32) {
+    dec[(size_t)t * batch + frame] = 0ull;
+  }
+}
+
+// One thread per frame, from state 0 at the last step down to step 6.
+__global__ void __launch_bounds__(32)
+chainback_kernel(const unsigned long long* __restrict__ dec,
+                 int* __restrict__ out, int batch, int total_steps) {
+  const int frame = blockIdx.x * blockDim.x + threadIdx.x;
+  if (frame >= batch) return;
+  constexpr int kAhead = 8;
+  int state = 0;
+  int t = total_steps - 1;
+  for (; t - (kAhead - 1) >= kTail; t -= kAhead) {
+    unsigned long long w[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) w[u] = dec[(size_t)(t - u) * batch + frame];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int bit = (int)((w[u] >> state) & 1ull);
+      out[(size_t)(t - u - kTail) * batch + frame] = bit;
+      state = (state >> 1) | (bit << 5);
+    }
+  }
+  for (; t >= kTail; --t) {
+    const int bit = (int)((dec[(size_t)t * batch + frame] >> state) & 1ull);
+    out[(size_t)(t - kTail) * batch + frame] = bit;
+    state = (state >> 1) | (bit << 5);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// soft: (batch, soft_stride) int32, soft_stride >= 2 * max(steps), even;
+// steps, init: (batch,) int32; dec: (total_steps, batch) uint64.
+int viterbi_acs(const int* soft, const int* steps, const int* init,
+                unsigned long long* dec, int batch, int soft_stride,
+                int total_steps, void* stream) {
+  if (batch > 0) {
+    acs_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        soft, steps, init, dec, batch, soft_stride, total_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dec: (total_steps, batch) uint64; out: (total_steps - 6, batch) int32.
+int viterbi_chainback(const unsigned long long* dec, int* out, int batch,
+                      int total_steps, void* stream) {
+  if (batch > 0) {
+    const int threads = 32;
+    const int blocks = (batch + threads - 1) / threads;
+    chainback_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        dec, out, batch, total_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

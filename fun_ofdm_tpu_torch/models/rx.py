@@ -1,0 +1,150 @@
+"""Frame-synchronous RX: decode frames at known start offsets.
+
+Counterpart of fun_ofdm_tpu/models/rx.py (the reference's fft_symbols,
+channel_est, phase_tracker and frame_decoder stages). Relative to a
+preamble start P the symbol bodies are cut 8 samples early, inside the
+cyclic prefix; the LTS channel estimate absorbs that constant rotation
+(reference: timing_sync.cpp:36-44):
+  LTS1 body = x[P+184 : P+248], LTS2 body = x[P+248 : P+312],
+  symbol k  = x[P+328+80k : P+392+80k] (k = 0 is SIGNAL).
+
+The carrier-offset estimators of the JAX module (cfo_correct=True) are not
+ported yet; frames decode as the reference does, without CFO correction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import preamble as pre
+from ..ops import fft64, mapper
+from ..rates import Rate, params_for
+from . import ppdu
+
+
+def extract_frames(stream: torch.Tensor, starts: torch.Tensor,
+                   num_symbols: int):
+    """Cut LTS and symbol bodies of many frames out of one stream.
+
+    stream: (..., n) complex; starts: (..., F) preamble starts.
+    Returns (lts (..., F, 2, 64), syms (..., F, 1+num_symbols, 64)).
+    Like the JAX package's dynamic_slice, each slice's start is clamped
+    into the stream (a truncated frame reads edge samples and fails CRC).
+    """
+    n = stream.shape[-1]
+    nsym_total = 1 + num_symbols
+    body_len = (nsym_total - 1) * pre.SYMBOL_STRIDE + 64
+    p = starts.to(torch.int64)
+    j = torch.arange(64, device=stream.device)
+    lts_at = torch.stack([torch.clamp(p + pre.LTS1_OFFSET, 0, n - 64),
+                          torch.clamp(p + pre.LTS2_OFFSET, 0, n - 64)], -1)
+    lts_idx = lts_at[..., None] + j                       # (..., F, 2, 64)
+    body_at = torch.clamp(p + pre.SYMBOL0_OFFSET, 0, n - body_len)
+    sym_off = (pre.SYMBOL_STRIDE
+               * torch.arange(nsym_total, device=stream.device))[:, None] + j
+    sym_idx = body_at[..., None, None] + sym_off          # (..., F, S, 64)
+
+    def gather(idx):
+        flat = idx.reshape(*stream.shape[:-1], -1)
+        return torch.gather(stream, -1, flat).reshape(idx.shape)
+
+    return gather(lts_idx), gather(sym_idx)
+
+
+def extract_symbols_p(samples, start, num_symbols: int):
+    """Planar counterpart of fun_ofdm_tpu's extract_symbols_p.
+
+    samples: (re, im) of (..., n); start: (...,) preamble starts.
+    Returns planar (lts (..., 2, 64), syms (..., 1+num_symbols, 64)).
+    """
+    stream = torch.complex(*samples)
+    start = torch.as_tensor(start, device=stream.device)
+    start = torch.broadcast_to(start, stream.shape[:-1])[..., None]
+    lts, syms = extract_frames(stream, start, num_symbols)
+    lts, syms = lts[..., 0, :, :], syms[..., 0, :, :]
+    return (lts.real, lts.imag), (syms.real, syms.imag)
+
+
+def channel_estimate(lts_time: torch.Tensor) -> torch.Tensor:
+    """Zero-forcing inverse channel from the two LTS bodies.
+
+    lts_time: (..., 2, 64). H_inv[j] = mean over both LTS of
+    LTS_ref[j] / LTS_rx[j], zero where LTS_rx[j] = 0 and on inactive bins
+    (reference: src/channel_est.cpp:44-58). Returns (..., 64).
+    """
+    lts_f = fft64.forward(lts_time)
+    ref = torch.from_numpy(pre.LTS_FREQ_DOMAIN).to(lts_f.device, lts_f.dtype)
+    d = lts_f.real * lts_f.real + lts_f.imag * lts_f.imag
+    num = ref * lts_f.conj()
+    inv = torch.where(d > 0, num / torch.where(d > 0, d, 1.0), 0.0)
+    active = torch.from_numpy(pre.LTS_FREQ_DOMAIN != 0).to(lts_f.device)
+    return inv.mean(dim=-2) * active
+
+
+def channel_estimate_p(lts_time):
+    """Planar form of channel_estimate."""
+    out = channel_estimate(torch.complex(*lts_time))
+    return out.real, out.imag
+
+
+def equalize_and_track(sym_time: torch.Tensor,
+                       h_inv: torch.Tensor) -> torch.Tensor:
+    """FFT, equalize, pilot phase-track, keep the 48 data bins.
+
+    sym_time: (..., S, 64) time-domain bodies (index 0 = SIGNAL);
+    h_inv: (..., 64). Returns (..., S, 48)
+    (reference: src/channel_est.cpp:77-81, src/phase_tracker.cpp:70-105).
+    """
+    eq = fft64.forward(sym_time) * h_inv[..., None, :]
+    nsym = sym_time.shape[-2]
+    dev = eq.device
+    pilot_ref = torch.from_numpy(
+        mapper.polarity_for_symbols(nsym, 0)[:, None] * mapper.PILOT_VALUES
+    ).to(dev, eq.real.dtype)                                   # (S, 4)
+    pilots = eq[..., torch.from_numpy(mapper.PILOT_IDX).long().to(dev)]
+    # the pilot references are real: rx * conj(ref) = rx * ref
+    angle = torch.angle((pilots * pilot_ref).mean(dim=-1))
+    rot = torch.polar(torch.ones_like(angle), -angle)
+    return mapper.demap_symbols(eq) * rot[..., None]
+
+
+def equalize_and_track_p(sym_time, h_inv):
+    """Planar form of equalize_and_track."""
+    out = equalize_and_track(torch.complex(*sym_time), torch.complex(*h_inv))
+    return out.real, out.imag
+
+
+def decode_frames(stream: torch.Tensor, rate: Rate, length: int,
+                  starts: torch.Tensor) -> dict:
+    """Decode the frames at starts (..., F) of stream (..., n).
+
+    All frames go through one header Viterbi and one payload Viterbi.
+    Returns per-frame payload (..., F, length), crc_ok, header_ok,
+    rate_field, hdr_length, service.
+    """
+    nsym = params_for(rate).num_symbols(length)
+    lts, syms = extract_frames(stream, starts, nsym)
+    data = equalize_and_track(syms, channel_estimate(lts))  # (..., F, S, 48)
+    rate_field, hdr_length, header_ok = ppdu.decode_header(data[..., 0, :])
+    rest = data[..., 1:, :].reshape(*data.shape[:-2], -1)
+    payload, crc_ok, service = ppdu.decode_data(rest, rate, length)
+    return {
+        "payload": payload,
+        "crc_ok": crc_ok,
+        "header_ok": header_ok,
+        "rate_field": rate_field,
+        "hdr_length": hdr_length,
+        "service": service,
+    }
+
+
+def decode_frame_p(samples, rate: Rate, length: int, start=0) -> dict:
+    """Planar counterpart of fun_ofdm_tpu's decode_frame_p (without CFO
+    correction): samples (re, im) of (..., n) each holding a frame whose
+    preamble starts at `start` (broadcast over the batch)."""
+    stream = torch.complex(*samples)
+    start = torch.as_tensor(start, device=stream.device)
+    start = torch.broadcast_to(start, stream.shape[:-1])[..., None]
+    out = decode_frames(stream, rate, length, start)
+    return {k: v[..., 0, :] if k == "payload" else v[..., 0]
+            for k, v in out.items()}

@@ -1,0 +1,172 @@
+"""The hand-written CUDA Viterbi (csrc/viterbi.cu), bound with ctypes.
+
+The kernels replace the Pallas kernels of fun_ofdm_tpu/ops/viterbi_pallas.py
+(forward ACS and survivor chainback, radix 4 and radix 2). The source is
+compiled with nvcc for sm_90a into a shared library with a plain C
+interface, at first use, into csrc/build/ (keyed by a hash of the source
+and flags); importing this module builds nothing. Each wrapper checks its
+tensors, launches on the current CUDA stream, raises when the launch
+fails, and counts its launches in `launches`.
+
+The plain versions of both kernels are ops/viterbi.acs_plain and
+ops/viterbi.chainback_plain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+K = 7
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "viterbi.cu"
+BUILD_DIR = SOURCE.parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel launches since the last reset_launches(), by kernel name
+launches = {"viterbi_acs": 0, "viterbi_chainback": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path() -> Path:
+    """Where the built library for the current source and flags lives."""
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"libviterbi_{digest[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> ctypes.CDLL:
+    """Compile the kernels (once per source version) and load them.
+
+    The compiler's report (registers, spills, shared memory per kernel)
+    is kept beside the library, with the suffix .log.
+    """
+    lib_path = library_path()
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True, check=False)
+        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.viterbi_acs.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
+    lib.viterbi_acs.restype = cint
+    lib.viterbi_chainback.argtypes = [ptr, ptr, cint, cint, ptr]
+    lib.viterbi_chainback.restype = cint
+    return lib
+
+
+def _check(x: torch.Tensor, name: str, dtype: torch.dtype,
+           shape: tuple) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def acs(soft: torch.Tensor, steps: torch.Tensor,
+        init: torch.Tensor) -> torch.Tensor:
+    """Forward ACS on the card.
+
+    soft: (B, 2T) int32 soft pairs, 8-byte aligned; steps: (B,) int32
+    per-frame step counts (even, <= T); init: (B,) int32, 1 = exact,
+    0 = uniform. Returns (T, B) int64 decision words: bit s of word
+    [t, b] is state s's decision at step t, zero for t >= steps[b].
+    """
+    if soft.dim() != 2 or soft.shape[1] % 2:
+        raise ValueError(f"soft must be (B, 2T), got {tuple(soft.shape)}")
+    bsz, width = soft.shape
+    total = width // 2
+    _check(soft, "soft", torch.int32, (bsz, width))
+    _check(steps, "steps", torch.int32, (bsz,))
+    _check(init, "init", torch.int32, (bsz,))
+    if not (steps.device == init.device == soft.device):
+        raise ValueError("soft, steps and init must be on one device")
+    if soft.data_ptr() % 8:
+        raise ValueError("soft must be 8-byte aligned")
+    # a count past the trellis would read past the row
+    steps = torch.clamp(steps, 0, total)
+    dec = torch.empty((total, bsz), dtype=torch.int64, device=soft.device)
+    if bsz == 0:
+        return dec
+    lib = build()
+    with torch.cuda.device(soft.device):
+        err = lib.viterbi_acs(soft.data_ptr(), steps.data_ptr(),
+                              init.data_ptr(), dec.data_ptr(), bsz, width,
+                              total, _stream(soft.device))
+    launches["viterbi_acs"] += 1
+    if err:
+        raise RuntimeError(f"viterbi_acs launch failed: CUDA error {err}")
+    return dec
+
+
+def chainback(dec: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Survivor chainback on the card.
+
+    dec: (nbits + 6, B) int64 decision words from acs. Returns the
+    (B, nbits) int32 decoded bits (a transposed view of the kernel's
+    (nbits, B) output).
+    """
+    if dec.dim() != 2 or dec.shape[0] != nbits + K - 1:
+        raise ValueError(f"dec must be ({nbits + K - 1}, B), got "
+                         f"{tuple(dec.shape)}")
+    bsz = dec.shape[1]
+    _check(dec, "dec", torch.int64, (nbits + K - 1, bsz))
+    out = torch.empty((nbits, bsz), dtype=torch.int32, device=dec.device)
+    if bsz == 0:
+        return out.T
+    lib = build()
+    with torch.cuda.device(dec.device):
+        err = lib.viterbi_chainback(dec.data_ptr(), out.data_ptr(), bsz,
+                                    nbits + K - 1, _stream(dec.device))
+    launches["viterbi_chainback"] += 1
+    if err:
+        raise RuntimeError(f"viterbi_chainback launch failed: CUDA error {err}")
+    return out.T
+
+
+def decode(soft: torch.Tensor, steps: torch.Tensor, init: torch.Tensor,
+           nbits: int) -> torch.Tensor:
+    """(B, 2*(nbits+6)) soft -> (B, nbits) int32 bits on the card."""
+    if soft.dim() != 2 or soft.shape[1] != 2 * (nbits + K - 1):
+        raise ValueError(f"soft must be (B, {2 * (nbits + K - 1)}), got "
+                         f"{tuple(soft.shape)}")
+    return chainback(acs(soft, steps, init), nbits)
