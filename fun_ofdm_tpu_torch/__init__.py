@@ -1,9 +1,12 @@
 """fun_ofdm_tpu_torch: the 802.11a OFDM PHY of fun_ofdm_tpu, in PyTorch.
 
 The port runs the dense capture receive (TX frame build, then frame
-detection and decode) on an NVIDIA H100, with a hand-written CUDA Viterbi
-(`csrc/viterbi.cu`). Its modules mirror fun_ofdm_tpu's (`ops/`, `models/`,
-`utils/`); fun_ofdm_tpu is the reference it is tested against.
+detection and decode), the header-driven dynamic and any-rate decoders and
+the streaming receiver chain (`runtime.chain.ReceiverChain`) on an NVIDIA
+H100, with a hand-written CUDA Viterbi (`csrc/viterbi.cu`: the exact
+decode and the block-overlap decode). Its modules mirror fun_ofdm_tpu's
+(`ops/`, `models/`, `runtime/`, `utils/`); fun_ofdm_tpu is the reference
+it is tested against.
 
 The rate table, the preamble and the chain configuration are plain
 Python/numpy modules; the port re-exports them so that both packages share

@@ -25,8 +25,28 @@
 // one thread per frame walking the decision words newest-first; the
 // words of a step for consecutive frames are adjacent ((T, B) layout), so
 // a warp's loads coalesce, and eight steps' loads are issued ahead of
-// their use. Time-parallel (block-overlap) decoding and more frames per
-// SM are later work.
+// their use. More frames per SM are later work.
+//
+// Block-overlap decode. `acs_windowed_kernel` and `splice_guard_kernel`
+// replace `_blocked_decode_impl` (fun_ofdm_tpu/ops/viterbi_pallas.py,
+// entry `viterbi_decode_pallas_blocked`), which runs `_decode_tiles` over
+// a gathered (frames, n_blocks, window) stack and splices the windows'
+// bits in XLA. Here the windowed ACS is the same warp-per-trellis ACS, one
+// warp per (frame, block) lane, reading the frame's soft pairs in place
+// at the window's offset (no gathered copy); its step count and init come
+// from the frame's step count, the block index, the block span tb and the
+// lead-in wf. The survivors go through the same chainback kernel, and the
+// splice and merge guard are one more kernel: one block per frame whose
+// threads copy each output bit from its window, and whose first warp
+// compares every cut's doubly decoded overlap, trimmed at both ends and
+// masked to the frame's live bits, and ORs the mismatches into the
+// frame's merge flag. What bounds it on this card is again the serial
+// step chain: a 1500-byte frame becomes 16 lanes of ~1,012 steps each
+// instead of one lane of 12,096, so at the streaming chain's smallest
+// bucket (4 frames, 64 warps on 132 SMs) the decode's latency is the
+// chain of one window, about 12x shorter than a whole frame's. The
+// design does nothing more about occupancy yet: 64 to 1,024 warps do not
+// fill the card, and the overlap adds 2 x 128 steps per window.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,20 +60,16 @@ constexpr int kTail = 6;  // K - 1
 
 __device__ __forceinline__ bool parity_of(int x) { return __popc(x) & 1; }
 
-// One warp per frame. Lane l holds the metrics of states l ("lo") and
-// l + 32 ("hi"). New state s comes from butterfly j = s >> 1, i.e. from
-// old states j and j + 32; lane l's new states l and l + 32 use
-// butterflies l >> 1 and 16 + (l >> 1).
-__global__ void __launch_bounds__(32)
-acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
-           const int* __restrict__ init, unsigned long long* __restrict__ dec,
-           int batch, int soft_stride, int total_steps) {
-  const int frame = blockIdx.x;
+// One warp runs one trellis. Lane l holds the metrics of states l ("lo")
+// and l + 32 ("hi"). New state s comes from butterfly j = s >> 1, i.e.
+// from old states j and j + 32; lane l's new states l and l + 32 use
+// butterflies l >> 1 and 16 + (l >> 1). Decisions go to column `col` of
+// the (total_steps, batch) word array, zero for steps >= n_steps.
+__device__ __forceinline__ void acs_trellis(
+    const int2* __restrict__ pairs, int n_steps, bool exact_init,
+    unsigned long long* __restrict__ dec, int batch, int col,
+    int total_steps) {
   const int lane = threadIdx.x;
-  const int2* pairs =
-      reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride);
-  const int n_steps = steps[frame];
-
   const int j_lo = lane >> 1;
   const int j_hi = 16 + (lane >> 1);
   const bool odd = lane & 1;
@@ -62,7 +78,7 @@ acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
   const bool e0_hi = parity_of((2 * j_hi) & kPoly0);
   const bool e1_hi = parity_of((2 * j_hi) & kPoly1);
 
-  int m_lo = (lane == 0 && init[frame] == 1) ? 0 : 63;
+  int m_lo = (lane == 0 && exact_init) ? 0 : 63;
   int m_hi = 63;
 
   for (int t0 = 0; t0 < n_steps; t0 += 32) {
@@ -92,7 +108,7 @@ acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
       const unsigned w_lo = __ballot_sync(kFull, d_a);
       const unsigned w_hi = __ballot_sync(kFull, d_b);
       if (lane == i) {
-        dec[(size_t)(t0 + i) * batch + frame] =
+        dec[(size_t)(t0 + i) * batch + col] =
             ((unsigned long long)w_hi << 32) | w_lo;
       }
       if (__shfl_sync(kFull, n_lo, 0) > 210) {
@@ -104,10 +120,39 @@ acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
       m_hi = n_hi;
     }
   }
-  // steps past the frame's trellis record zero decisions
+  // steps past the trellis's count record zero decisions
   for (int t = n_steps + lane; t < total_steps; t += 32) {
-    dec[(size_t)t * batch + frame] = 0ull;
+    dec[(size_t)t * batch + col] = 0ull;
   }
+}
+
+// One warp per frame.
+__global__ void __launch_bounds__(32)
+acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
+           const int* __restrict__ init, unsigned long long* __restrict__ dec,
+           int batch, int soft_stride, int total_steps) {
+  const int frame = blockIdx.x;
+  acs_trellis(reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride),
+              steps[frame], init[frame] == 1, dec, batch, frame, total_steps);
+}
+
+// One warp per (frame, block) lane b = frame * n_blocks + blk. The window
+// starts at trellis step off = max(0, blk * tb - wf) of the frame's row;
+// it runs min(max(steps[frame] - off, 0), win) steps of win + 6, with the
+// exact init for block 0 and the uniform init for the others.
+__global__ void __launch_bounds__(32)
+acs_windowed_kernel(const int* __restrict__ soft,
+                    const int* __restrict__ steps,
+                    unsigned long long* __restrict__ dec, int lanes,
+                    int soft_stride, int n_blocks, int tb, int wf, int win) {
+  const int b = blockIdx.x;
+  const int frame = b / n_blocks;
+  const int blk = b - frame * n_blocks;
+  const int off = max(0, blk * tb - wf);
+  const int n_steps = min(max(steps[frame] - off, 0), win);
+  acs_trellis(reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride
+                                            + 2 * (size_t)off),
+              n_steps, blk == 0, dec, lanes, b, win + kTail);
 }
 
 // One thread per frame, from state 0 at the last step down to step 6.
@@ -137,6 +182,42 @@ chainback_kernel(const unsigned long long* __restrict__ dec,
   }
 }
 
+// One block per frame. Output bit n of the frame lives in block
+// b = n / tb at window index n - b * tb (+ wf for b > 0). The first warp
+// also runs the merge guard: around each cut b, the region
+// [b * tb - wf, b * tb + wc) was decoded by both block b - 1 (at window
+// index prev_start + i) and block b (at i); mismatches at
+// i in [trim, ov - trim) whose bit lies below the frame's live extent
+// clear the frame's flag.
+__global__ void __launch_bounds__(256)
+splice_guard_kernel(const int* __restrict__ win_bits,
+                    const int* __restrict__ steps, int* __restrict__ bits,
+                    int* __restrict__ merge_ok, int lanes, int n_blocks,
+                    int nbits, int tb, int wf, int ov, int trim) {
+  const int frame = blockIdx.x;
+  const int base = frame * n_blocks;
+  for (int n = threadIdx.x; n < nbits; n += blockDim.x) {
+    const int b = n / tb;
+    const int m = n - b * tb + (b > 0 ? wf : 0);
+    bits[(size_t)frame * nbits + n] = win_bits[(size_t)m * lanes + base + b];
+  }
+  if (threadIdx.x < 32) {
+    const int live_hi = min(max(steps[frame] - kTail, 0), nbits);
+    bool mism = false;
+    for (int b = 1; b < n_blocks; ++b) {
+      const int lo = b * tb - wf;
+      const int prev_start = lo - max(0, (b - 1) * tb - wf);
+      for (int i = trim + threadIdx.x; i < ov - trim; i += 32) {
+        const int prev = win_bits[(size_t)(prev_start + i) * lanes + base + b - 1];
+        const int cur = win_bits[(size_t)i * lanes + base + b];
+        mism |= (lo + i < live_hi) && (prev != cur);
+      }
+    }
+    mism = __any_sync(kFull, mism);
+    if (threadIdx.x == 0) merge_ok[frame] = mism ? 0 : 1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,6 +242,31 @@ int viterbi_chainback(const unsigned long long* dec, int* out, int batch,
     const int blocks = (batch + threads - 1) / threads;
     chainback_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         dec, out, batch, total_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// soft: (frames, soft_stride) int32; steps: (frames,) int32;
+// dec: (win + 6, frames * n_blocks) uint64.
+int viterbi_acs_windowed(const int* soft, const int* steps,
+                         unsigned long long* dec, int lanes, int soft_stride,
+                         int n_blocks, int tb, int wf, int win, void* stream) {
+  if (lanes > 0) {
+    acs_windowed_kernel<<<lanes, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        soft, steps, dec, lanes, soft_stride, n_blocks, tb, wf, win);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// win_bits: (win, frames * n_blocks) int32; steps: (frames,) int32;
+// bits: (frames, nbits) int32; merge_ok: (frames,) int32.
+int viterbi_splice_guard(const int* win_bits, const int* steps, int* bits,
+                         int* merge_ok, int frames, int n_blocks, int nbits,
+                         int tb, int wf, int ov, int trim, void* stream) {
+  if (frames > 0) {
+    splice_guard_kernel<<<frames, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        win_bits, steps, bits, merge_ok, frames * n_blocks, n_blocks, nbits,
+        tb, wf, ov, trim);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -163,3 +163,122 @@ def decode_data(samples: torch.Tensor, rate: Rate, length: int):
 def decode_data_p(samples, rate: Rate, length: int):
     """Planar form of decode_data."""
     return decode_data(torch.complex(*samples), rate, length)
+
+
+def _descrambled_payload(decoded_bits: torch.Tensor, n_bytes: int,
+                         lengths_c: torch.Tensor, max_length: int):
+    """Bits of frames with per-frame lengths -> (payload (..., max_length),
+    CRC agreement (...,), service (...,)): descramble, then the given CRC
+    at byte offset 2 + length and the computed one over the first
+    2 + length bytes."""
+    decoded_bits = torch.nn.functional.pad(
+        decoded_bits, (0, (-decoded_bits.shape[-1]) % 8))
+    descrambled = scramble.descramble_bytes(
+        bits_to_bytes(decoded_bits)[..., :n_bytes])
+    service = descrambled[..., 0] | (descrambled[..., 1] << 8)
+    payload = descrambled[..., SERVICE_BYTES:SERVICE_BYTES + max_length]
+    off = (SERVICE_BYTES + lengths_c)[..., None] + torch.arange(
+        CRC_BYTES, device=lengths_c.device)
+    given_b = torch.gather(descrambled, -1,
+                           off.clamp(0, descrambled.shape[-1] - 1))
+    given = sum(given_b[..., i].to(torch.int64) << (8 * i)
+                for i in range(CRC_BYTES))
+    calc = crc32.crc32_dynamic(
+        descrambled[..., :SERVICE_BYTES + max_length],
+        SERVICE_BYTES + lengths_c)
+    return payload, given == calc, service
+
+
+def _frame_nbits(lengths_c: torch.Tensor, dbps) -> torch.Tensor:
+    """Data bits of each frame, in-buffer tail included."""
+    frame_bits = 16 + 8 * (lengths_c + CRC_BYTES) + TAIL_BITS
+    return (frame_bits + dbps - 1) // dbps * dbps
+
+
+def decode_data_dynamic_p(samples, rate: Rate, lengths, max_length: int,
+                          viterbi_impl: str | None = None,
+                          return_exact: bool = False):
+    """Decode frames of per-frame byte lengths at one static rate.
+
+    Counterpart of fun_ofdm_tpu's decode_data_dynamic_p. samples: (re, im)
+    of (..., num_symbols(max_length)*48) equalized data samples (past a
+    frame's extent: anything); lengths: (...,) payload byte counts from
+    the SIGNAL header. Every transform before the Viterbi is
+    position-uniform, so a shorter frame is a prefix of the static
+    buffers; the Viterbi stops each frame at its own trellis end and the
+    CRC is taken over the frame's own bytes. Returns (payload
+    (..., max_length) int32, first `lengths` bytes valid; crc_ok (...,)
+    bool, False for a length outside 1..max_length; service (...,)
+    int32), and with return_exact=True the Viterbi's exactness flag.
+    """
+    rp = params_for(rate)
+    lengths = torch.as_tensor(lengths, device=samples[0].device).to(
+        torch.int64)
+    in_range = (lengths >= 1) & (lengths <= max_length)
+    lengths_c = lengths.clamp(1, max_length)
+    nbits = _frame_nbits(lengths_c, rp.dbps)
+
+    soft = interleave.deinterleave(qam.demodulate_p(samples, rate))
+    depunct = puncture.depuncture(soft, rate)
+    decoded_bits, exact_ok = viterbi.viterbi_decode(
+        depunct, rp.num_data_bits(max_length) - TAIL_BITS,
+        impl=viterbi_impl, nbits_dynamic=nbits - TAIL_BITS,
+        return_exact=True)
+    payload, crc_ok, service = _descrambled_payload(
+        decoded_bits, rp.num_data_bytes(max_length), lengths_c, max_length)
+    crc_ok = crc_ok & in_range
+    if return_exact:
+        return payload, crc_ok, service, exact_ok
+    return payload, crc_ok, service
+
+
+def _anyrate_coded_select(samples, rates, ridx, n_coded_max: int):
+    """Each frame's depunctured soft stream at the rate of its header: every
+    configured rate's own demodulate -> deinterleave -> depuncture, padded
+    or cut to n_coded_max with erasures, then selected per frame by
+    ridx (...,), an index into rates."""
+    acc = None
+    for i, r in enumerate(rates):
+        soft = interleave.deinterleave(qam.demodulate_p(samples, r))
+        cur = puncture.depuncture(soft, r).to(torch.int32)[..., :n_coded_max]
+        cur = torch.nn.functional.pad(
+            cur, (0, n_coded_max - cur.shape[-1]), value=puncture.ERASURE)
+        sel = (ridx == i)[..., None]
+        acc = torch.where(sel, cur, puncture.ERASURE if acc is None else acc)
+    return acc
+
+
+def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
+                          lengths, max_length: int,
+                          viterbi_impl: str | None = None):
+    """Universal payload decode: rate and length are per-frame values.
+
+    Counterpart of fun_ofdm_tpu's decode_data_anyrate_p with its default
+    strategy "select" (the "gather" strategy is not ported). samples:
+    (re, im) of (..., nsym_max*48), nsym_max the largest num_symbols
+    (max_length) over `rates`; rate_idx: (...,) index into `rates` (out
+    of range: unknown rate, crc_ok False); lengths: (...,) payload byte
+    counts. Returns (payload (..., max_length), crc_ok, service,
+    viterbi_exact).
+    """
+    rates = tuple(rates)
+    nbits_max = max(params_for(r).num_data_bits(max_length) for r in rates)
+    n_bytes_max = max(params_for(r).num_data_bytes(max_length)
+                      for r in rates)
+    dev = samples[0].device
+    rate_idx = torch.as_tensor(rate_idx, device=dev).to(torch.int64)
+    known = (rate_idx >= 0) & (rate_idx < len(rates))
+    ridx = rate_idx.clamp(0, len(rates) - 1)
+    lengths = torch.as_tensor(lengths, device=dev).to(torch.int64)
+    in_range = (lengths >= 1) & (lengths <= max_length) & known
+    lengths_c = lengths.clamp(1, max_length)
+    dbps = torch.tensor([params_for(r).dbps for r in rates], device=dev)
+    nbits = _frame_nbits(lengths_c, dbps[ridx])
+
+    coded = _anyrate_coded_select(samples, rates, ridx, 2 * nbits_max)
+    decoded_bits, exact_ok = viterbi.viterbi_decode(
+        coded, nbits_max - TAIL_BITS, impl=viterbi_impl,
+        nbits_dynamic=nbits - TAIL_BITS, return_exact=True)
+    payload, crc_ok, service = _descrambled_payload(
+        decoded_bits, n_bytes_max, lengths_c, max_length)
+    return payload, crc_ok & in_range, service, exact_ok

@@ -142,9 +142,118 @@ def decode_frame_p(samples, rate: Rate, length: int, start=0) -> dict:
     """Planar counterpart of fun_ofdm_tpu's decode_frame_p (without CFO
     correction): samples (re, im) of (..., n) each holding a frame whose
     preamble starts at `start` (broadcast over the batch)."""
+    return _one_frame(lambda s, st: decode_frames(s, rate, length, st),
+                      samples, start)
+
+
+def _no_cfo(cfo_correct: bool) -> None:
+    if cfo_correct:
+        raise NotImplementedError(
+            "cfo_correct=True: the carrier-offset estimators are not "
+            "ported yet (ROADMAP.md, Queue 1 item 1)")
+
+
+def _header_and_rest(stream, starts, nsym_max: int):
+    """Extract and equalize nsym_max data symbols at each start; decode
+    the SIGNAL header. Returns (data samples (..., F, nsym_max*48),
+    rate_field, hdr_length, header_ok)."""
+    lts, syms = extract_frames(stream, starts, nsym_max)
+    data = equalize_and_track(syms, channel_estimate(lts))
+    rate_field, hdr_length, header_ok = ppdu.decode_header(data[..., 0, :])
+    rest = data[..., 1:, :].reshape(*data.shape[:-2], -1)
+    return rest, rate_field, hdr_length, header_ok
+
+
+def decode_frames_dynamic(stream: torch.Tensor, rate: Rate, max_length: int,
+                          starts: torch.Tensor,
+                          viterbi_impl: str | None = None) -> dict:
+    """Header-driven decode of the frames at starts (..., F) of stream
+    (..., n), at one static rate: each payload length comes from the
+    frame's SIGNAL field. All frames go through one header Viterbi and
+    one payload Viterbi. The stream must cover a max_length frame from
+    each start. Returns per-frame payload (..., F, max_length) (first
+    hdr_length bytes valid), crc_ok (False on another rate's header or a
+    length outside 1..max_length), header_ok, rate_field, hdr_length,
+    service, rate_match, viterbi_exact (False only where the block-overlap
+    Viterbi's merge guard flagged the frame)."""
+    rp = params_for(rate)
+    rest, rate_field, hdr_length, header_ok = _header_and_rest(
+        stream, starts, rp.num_symbols(max_length))
+    rate_match = rate_field == rp.rate_field
+    payload, crc_ok, service, exact = ppdu.decode_data_dynamic_p(
+        (rest.real, rest.imag), rate, hdr_length, max_length,
+        viterbi_impl=viterbi_impl, return_exact=True)
+    return {
+        "payload": payload,
+        "crc_ok": crc_ok & header_ok & rate_match,
+        "header_ok": header_ok,
+        "rate_field": rate_field,
+        "hdr_length": hdr_length,
+        "service": service,
+        "rate_match": rate_match,
+        "viterbi_exact": exact,
+    }
+
+
+def decode_frames_anyrate(stream: torch.Tensor, rates: tuple[Rate, ...],
+                          max_length: int, starts: torch.Tensor,
+                          viterbi_impl: str | None = None) -> dict:
+    """Universal decode of the frames at starts (..., F) of stream
+    (..., n): rate and length both come from each frame's SIGNAL field.
+    Symbols are extracted at the slowest configured rate's geometry, so
+    the stream must cover that rate's max_length frame from each start.
+    Same outputs as decode_frames_dynamic; rate_match is True where the
+    header's rate is one of `rates`."""
+    rates = tuple(rates)
+    nsym_max = max(params_for(r).num_symbols(max_length) for r in rates)
+    rest, rate_field, hdr_length, header_ok = _header_and_rest(
+        stream, starts, nsym_max)
+    rate_idx = torch.full_like(rate_field, -1)
+    for i, r in enumerate(rates):
+        rate_idx = torch.where(rate_field == params_for(r).rate_field, i,
+                               rate_idx)
+    rate_match = rate_idx >= 0
+    payload, crc_ok, service, exact = ppdu.decode_data_anyrate_p(
+        (rest.real, rest.imag), rates, rate_idx, hdr_length, max_length,
+        viterbi_impl=viterbi_impl)
+    return {
+        "payload": payload,
+        "crc_ok": crc_ok & header_ok & rate_match,
+        "header_ok": header_ok,
+        "rate_field": rate_field,
+        "hdr_length": hdr_length,
+        "service": service,
+        "rate_match": rate_match,
+        "viterbi_exact": exact,
+    }
+
+
+def _one_frame(decode, samples, start):
     stream = torch.complex(*samples)
     start = torch.as_tensor(start, device=stream.device)
     start = torch.broadcast_to(start, stream.shape[:-1])[..., None]
-    out = decode_frames(stream, rate, length, start)
+    out = decode(stream, start)
     return {k: v[..., 0, :] if k == "payload" else v[..., 0]
             for k, v in out.items()}
+
+
+def decode_frame_dynamic_p(samples, rate: Rate, max_length: int, start=0,
+                           cfo_correct: bool = False,
+                           viterbi_impl: str | None = None) -> dict:
+    """Planar counterpart of fun_ofdm_tpu's decode_frame_dynamic_p:
+    samples (re, im) of (..., n), one frame per stream at `start`
+    (broadcast over the batch). cfo_correct=True is not ported yet."""
+    _no_cfo(cfo_correct)
+    return _one_frame(lambda s, st: decode_frames_dynamic(
+        s, rate, max_length, st, viterbi_impl), samples, start)
+
+
+def decode_frame_anyrate_p(samples, rates: tuple[Rate, ...],
+                           max_length: int, start=0,
+                           cfo_correct: bool = False,
+                           viterbi_impl: str | None = None) -> dict:
+    """Planar counterpart of fun_ofdm_tpu's decode_frame_anyrate_p (see
+    decode_frame_dynamic_p)."""
+    _no_cfo(cfo_correct)
+    return _one_frame(lambda s, st: decode_frames_anyrate(
+        s, rates, max_length, st, viterbi_impl), samples, start)

@@ -69,3 +69,41 @@ def crc32(data: torch.Tensor) -> torch.Tensor:
         vals = vals[..., :width] ^ vals[..., width:]
     init = _position_tables(n)[1]
     return vals[..., 0] ^ (init ^ _MASK)
+
+
+@functools.lru_cache(maxsize=None)
+def _init_contrib_table(n_max: int) -> np.ndarray:
+    """(n_max + 1,) int64: L^(8n)(0xFFFFFFFF) for n = 0..n_max."""
+    out = np.zeros(n_max + 1, np.uint32)
+    cur = np.array([_MASK], np.uint32)
+    for n in range(n_max + 1):
+        out[n] = cur[0]
+        cur = _shift_zero_byte(cur)
+    return out.astype(np.int64)
+
+
+def crc32_dynamic(data: torch.Tensor, n_valid) -> torch.Tensor:
+    """CRC-32 of the first n_valid bytes of each row.
+
+    Counterpart of fun_ofdm_tpu's crc32_dynamic. data: (..., n_max)
+    bytes; n_valid: (...,) lengths <= n_max. Each message is right-aligned
+    into the row (leading zero bytes leave a zero state at zero, so the
+    per-position table of `crc32` applies unchanged) and the
+    length-dependent initial-state contribution comes from a table.
+    Returns (...,) int64 in [0, 2^32).
+    """
+    n_max = data.shape[-1]
+    dev = data.device
+    n_valid = torch.broadcast_to(
+        torch.as_tensor(n_valid, device=dev).to(torch.int64), data.shape[:-1])
+    src = torch.arange(n_max, device=dev) - (n_max - n_valid)[..., None]
+    shifted = torch.gather(data.to(torch.int64), -1, src.clamp(0, n_max - 1))
+    shifted = torch.where(src >= 0, shifted, 0)
+    vals = _device_table(n_max, dev)[torch.arange(n_max, device=dev), shifted]
+    width = 1 << max(n_max - 1, 0).bit_length()
+    vals = torch.nn.functional.pad(vals, (0, width - n_max))
+    while width > 1:
+        width //= 2
+        vals = vals[..., :width] ^ vals[..., width:]
+    init = torch.from_numpy(_init_contrib_table(n_max)).to(dev)[n_valid]
+    return vals[..., 0] ^ init ^ _MASK

@@ -3,7 +3,8 @@
 Counterpart of fun_ofdm_tpu/ops/viterbi.py. `viterbi_decode` is the
 dispatcher: a tensor on the CPU goes to the plain twin below, a CUDA
 tensor to the hand-written kernel (ops/viterbi_cuda.py,
-csrc/viterbi.cu), at every size, the 18-bit SIGNAL header included.
+csrc/viterbi.cu), at every size, the 18-bit SIGNAL header included; the
+block-overlap decode is ops/viterbi_blocked.py.
 
 The twin is `viterbi_decode_scan`'s arithmetic, exactly (reference:
 src/viterbi.cpp:71-459):
@@ -151,26 +152,59 @@ def viterbi_decode_scan(soft: torch.Tensor, nbits: int,
         *batch_shape, nbits)
 
 
-def viterbi_decode(soft: torch.Tensor, nbits: int,
-                   nbits_dynamic=None) -> torch.Tensor:
+#: the dispatcher's names for the exact decode and for the block-overlap
+#: decode (fun_ofdm_tpu's names, so a caller's setting carries across)
+EXACT_IMPLS = (None, "auto", "exact", "scan", "pallas")
+BLOCKED_IMPL = "pallas-blocked"
+
+#: below this many data bits the blocked request decodes exactly, as in
+#: fun_ofdm_tpu (a header is never split into blocks)
+BLOCKED_MIN_NBITS = 64
+
+
+def viterbi_decode(soft: torch.Tensor, nbits: int, impl: str | None = None,
+                   nbits_dynamic=None, return_exact: bool = False):
     """Decode (..., 2*(nbits+6)) soft bits to (..., nbits) int32 bits.
 
-    A CUDA tensor goes to the CUDA kernel (one launch pair for the whole
-    flattened batch); a CPU tensor to the plain twin. nbits_dynamic:
-    optional (...,) per-frame data-bit counts <= nbits; steps past a
-    frame's count record zero decisions, and its bits past the count
-    are unspecified.
+    Counterpart of fun_ofdm_tpu's dispatcher. impl: None, "auto",
+    "exact", "scan" and "pallas" all select the exact decode: on a CUDA
+    tensor the kernels (one launch pair for the whole flattened batch),
+    on a CPU tensor the plain twin. "pallas-blocked" selects the
+    block-overlap decode (ops/viterbi_blocked) for trellises of at least
+    BLOCKED_MIN_NBITS bits: its kernels on a CUDA tensor; on a CPU tensor
+    the exact twin with an all-True flag, as fun_ofdm_tpu does off the
+    TPU. Unlike fun_ofdm_tpu, the port reads no FUN_OFDM_VITERBI
+    variable: the caller's `impl` alone decides.
+    nbits_dynamic: optional (...,) per-frame data-bit counts <= nbits;
+    steps past a frame's count record zero decisions, and its bits past
+    the count are unspecified.
+    return_exact: also return a (...,) bool flag, True where the result
+    is exact (always for the exact decode; the merge guard's verdict for
+    the block-overlap decode).
     """
-    if soft.device.type == "cpu":
-        return viterbi_decode_scan(soft, nbits, nbits_dynamic)
-    if soft.device.type != "cuda":
+    if impl not in EXACT_IMPLS and impl != BLOCKED_IMPL:
+        raise ValueError(f"unknown Viterbi impl {impl!r}")
+    if soft.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no Viterbi for device {soft.device}")
-    from . import viterbi_cuda
-
     batch_shape = soft.shape[:-1]
-    flat = soft.reshape(-1, soft.shape[-1]).to(torch.int32).contiguous()
-    steps = step_counts(nbits, nbits_dynamic, batch_shape,
-                        soft.device).reshape(-1).contiguous()
-    init = torch.ones_like(steps)
-    bits = viterbi_cuda.decode(flat, steps, init, nbits)
-    return bits.reshape(*batch_shape, nbits)
+    if (impl == BLOCKED_IMPL and nbits >= BLOCKED_MIN_NBITS
+            and soft.device.type == "cuda"):
+        from . import viterbi_blocked
+
+        return viterbi_blocked.viterbi_decode_blocked(
+            soft, nbits, nbits_dynamic=nbits_dynamic,
+            return_merge_ok=return_exact)
+    if soft.device.type == "cpu":
+        bits = viterbi_decode_scan(soft, nbits, nbits_dynamic)
+    else:
+        from . import viterbi_cuda
+
+        flat = soft.reshape(-1, soft.shape[-1]).to(torch.int32).contiguous()
+        steps = step_counts(nbits, nbits_dynamic, batch_shape,
+                            soft.device).reshape(-1).contiguous()
+        bits = viterbi_cuda.decode(flat, steps, torch.ones_like(steps),
+                                   nbits).reshape(*batch_shape, nbits)
+    if return_exact:
+        return bits, torch.ones(batch_shape, dtype=torch.bool,
+                                device=soft.device)
+    return bits

@@ -1,15 +1,18 @@
 """The hand-written CUDA Viterbi (csrc/viterbi.cu), bound with ctypes.
 
-The kernels replace the Pallas kernels of fun_ofdm_tpu/ops/viterbi_pallas.py
-(forward ACS and survivor chainback, radix 4 and radix 2). The source is
+The kernels replace the Pallas kernels of fun_ofdm_tpu/ops/viterbi_pallas.py:
+forward ACS and survivor chainback (radix 4 and radix 2), and the
+block-overlap decode `_blocked_decode_impl` (a windowed ACS, the same
+chainback, and a splice + merge-guard kernel). The source is
 compiled with nvcc for sm_90a into a shared library with a plain C
 interface, at first use, into csrc/build/ (keyed by a hash of the source
 and flags); importing this module builds nothing. Each wrapper checks its
 tensors, launches on the current CUDA stream, raises when the launch
 fails, and counts its launches in `launches`.
 
-The plain versions of both kernels are ops/viterbi.acs_plain and
-ops/viterbi.chainback_plain.
+The plain versions are ops/viterbi.acs_plain and ops/viterbi.chainback_plain,
+and for the block-overlap pair ops/viterbi_blocked.acs_windowed_plain and
+ops/viterbi_blocked.splice_guard_plain.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches since the last reset_launches(), by kernel name
-launches = {"viterbi_acs": 0, "viterbi_chainback": 0}
+launches = {"viterbi_acs": 0, "viterbi_chainback": 0,
+            "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0}
 
 
 def reset_launches() -> None:
@@ -82,6 +86,12 @@ def build() -> ctypes.CDLL:
     lib.viterbi_acs.restype = cint
     lib.viterbi_chainback.argtypes = [ptr, ptr, cint, cint, ptr]
     lib.viterbi_chainback.restype = cint
+    lib.viterbi_acs_windowed.argtypes = [ptr, ptr, ptr, cint, cint, cint,
+                                         cint, cint, cint, ptr]
+    lib.viterbi_acs_windowed.restype = cint
+    lib.viterbi_splice_guard.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
+                                         cint, cint, cint, cint, ptr]
+    lib.viterbi_splice_guard.restype = cint
     return lib
 
 
@@ -170,3 +180,81 @@ def decode(soft: torch.Tensor, steps: torch.Tensor, init: torch.Tensor,
         raise ValueError(f"soft must be (B, {2 * (nbits + K - 1)}), got "
                          f"{tuple(soft.shape)}")
     return chainback(acs(soft, steps, init), nbits)
+
+
+def acs_windowed(soft: torch.Tensor, steps: torch.Tensor, n_blocks: int,
+                 tb: int, wf: int, win: int) -> torch.Tensor:
+    """Forward ACS of every (frame, block) window on the card.
+
+    soft: (F, 2T) int32 soft pairs, 8-byte aligned; steps: (F,) int32
+    per-frame even step counts <= T. Lane b = f * n_blocks + blk runs
+    window blk of frame f: from trellis step max(0, blk * tb - wf), for
+    min(max(steps[f] - that, 0), win) steps, exact init for blk 0 and
+    uniform for the others. Returns (win + 6, F * n_blocks) int64
+    decision words, zero past each lane's count.
+    """
+    if soft.dim() != 2 or soft.shape[1] % 2:
+        raise ValueError(f"soft must be (F, 2T), got {tuple(soft.shape)}")
+    frames, width = soft.shape
+    _check(soft, "soft", torch.int32, (frames, width))
+    _check(steps, "steps", torch.int32, (frames,))
+    if steps.device != soft.device:
+        raise ValueError("soft and steps must be on one device")
+    if soft.data_ptr() % 8:
+        raise ValueError("soft must be 8-byte aligned")
+    if n_blocks < 1 or min(tb, wf, win) < 0:
+        raise ValueError("n_blocks must be >= 1 and tb, wf, win >= 0")
+    # a count past the trellis would read past the row
+    steps = torch.clamp(steps, 0, width // 2)
+    lanes = frames * n_blocks
+    dec = torch.empty((win + K - 1, lanes), dtype=torch.int64,
+                      device=soft.device)
+    if lanes == 0:
+        return dec
+    lib = build()
+    with torch.cuda.device(soft.device):
+        err = lib.viterbi_acs_windowed(soft.data_ptr(), steps.data_ptr(),
+                                       dec.data_ptr(), lanes, width, n_blocks,
+                                       tb, wf, win, _stream(soft.device))
+    launches["viterbi_acs_windowed"] += 1
+    if err:
+        raise RuntimeError(
+            f"viterbi_acs_windowed launch failed: CUDA error {err}")
+    return dec
+
+
+def splice_guard(win_bits: torch.Tensor, steps: torch.Tensor, nbits: int,
+                 n_blocks: int, tb: int, wf: int, ov: int, trim: int):
+    """Splice the windows' bits into frames and run the merge guard.
+
+    win_bits: (win, F * n_blocks) int32, the chainback's output layout;
+    steps: (F,) int32 per-frame step counts. Returns ((F, nbits) int32
+    bits, (F,) bool merge flags).
+    """
+    lanes = win_bits.shape[1] if win_bits.dim() == 2 else -1
+    frames = steps.shape[0] if steps.dim() == 1 else -1
+    if lanes != frames * n_blocks:
+        raise ValueError(f"win_bits must be (win, {frames} * {n_blocks}), "
+                         f"got {tuple(win_bits.shape)}")
+    _check(win_bits, "win_bits", torch.int32, tuple(win_bits.shape))
+    _check(steps, "steps", torch.int32, (frames,))
+    if steps.device != win_bits.device:
+        raise ValueError("win_bits and steps must be on one device")
+    if tb * n_blocks < nbits or win_bits.shape[0] < tb + ov or tb < wf:
+        raise ValueError("the block geometry does not cover the splice")
+    bits = torch.empty((frames, nbits), dtype=torch.int32,
+                       device=win_bits.device)
+    ok = torch.empty((frames,), dtype=torch.int32, device=win_bits.device)
+    if frames == 0:
+        return bits, ok.bool()
+    lib = build()
+    with torch.cuda.device(win_bits.device):
+        err = lib.viterbi_splice_guard(
+            win_bits.data_ptr(), steps.data_ptr(), bits.data_ptr(),
+            ok.data_ptr(), frames, n_blocks, nbits, tb, wf, ov, trim,
+            _stream(win_bits.device))
+    launches["viterbi_splice_guard"] += 1
+    if err:
+        raise RuntimeError(
+            f"viterbi_splice_guard launch failed: CUDA error {err}")
+    return bits, ok.bool()

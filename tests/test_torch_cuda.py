@@ -1,4 +1,5 @@
-"""The port on the card: the CUDA Viterbi and the capture receive.
+"""The port on the card: the CUDA Viterbi, the capture receive and the
+streaming chain.
 
 These need an NVIDIA GPU with the CUDA toolkit and skip elsewhere. They
 import no jax (a GPU machine need not have it), so run them without the
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from fun_ofdm_tpu_torch.config import ChainParams
 from fun_ofdm_tpu_torch.models import frontend, tx
-from fun_ofdm_tpu_torch.ops import convcode, viterbi, viterbi_cuda
+from fun_ofdm_tpu_torch.ops import (convcode, viterbi, viterbi_blocked,
+                                    viterbi_cuda)
 from fun_ofdm_tpu_torch.rates import Rate
+from fun_ofdm_tpu_torch.runtime import chain
 
 pytestmark = pytest.mark.cuda
 
@@ -77,9 +81,68 @@ def test_capture_on_card_matches_cpu(cuda_device):
     before = dict(viterbi_cuda.launches)
     got = frontend.receive_capture_p(
         (s_re.to(cuda_device), s_im.to(cuda_device)), rate, length, 5)
-    assert all(viterbi_cuda.launches[k] == before[k] + 2 for k in before)
+    # one header and one payload launch of the exact pair, no blocked one
+    assert {k: viterbi_cuda.launches[k] - before[k] for k in before} == {
+        "viterbi_acs": 2, "viterbi_chainback": 2,
+        "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0}
     for key in ("starts", "valid", "crc_ok", "header_ok"):
         assert torch.equal(got[key].cpu(), want[key]), key
     valid = want["valid"]
     assert torch.equal(got["payload"].cpu()[valid], want["payload"][valid])
     assert int(want["crc_ok"].sum()) == 6
+
+
+@pytest.mark.parametrize("frames,nbits,warmup", [(4, 12090, 128),
+                                                 (8, 1200, 2)])
+def test_blocked_kernels_match_plain(cuda_device, frames, nbits, warmup):
+    """The block-overlap decode through its kernels equals its plain
+    version on the same card: bits and merge flags, mixed lengths (and,
+    at warm-up 2, forced splice failures)."""
+    rng = np.random.default_rng(frames)
+    soft = _noisy_soft(rng, frames, nbits).to(cuda_device)
+    nbd = torch.from_numpy(rng.integers(nbits // 2, nbits + 1, frames))
+    steps = viterbi.step_counts(nbits, nbd, (frames,), cuda_device)
+    geo = viterbi_blocked.geometry(nbits, 16, warmup)
+    before = dict(viterbi_cuda.launches)
+    bits, ok = viterbi_blocked.decode_cuda(soft.contiguous(), steps, geo)
+    assert viterbi_cuda.launches["viterbi_acs_windowed"] == \
+        before["viterbi_acs_windowed"] + 1
+    assert viterbi_cuda.launches["viterbi_splice_guard"] == \
+        before["viterbi_splice_guard"] + 1
+    want_bits, want_ok = viterbi_blocked.decode_plain(soft, steps, geo)
+    assert torch.equal(bits.cpu(), want_bits.cpu())
+    assert torch.equal(ok.cpu(), want_ok.cpu())
+
+
+def test_dense_chain_on_card_matches_cpu(cuda_device):
+    """A ReceiverChain on the card delivers the same packets as the same
+    chain on the CPU, and its small buckets go through the block-overlap
+    kernels."""
+    rate, length = Rate.RATE_3_4_QAM16, 100
+    rng = np.random.default_rng(5)
+    payload = torch.from_numpy(rng.integers(0, 256, (6, length),
+                                            dtype=np.uint8))
+    fre, fim = (f.numpy() for f in tx.build_frame_p(payload, rate))
+    n, pos = 40000, 300
+    s_re, s_im = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    for k in range(6):
+        s_re[pos:pos + fre.shape[1]], s_im[pos:pos + fim.shape[1]] = \
+            fre[k], fim[k]
+        pos += fre.shape[1] + 3000 + 500 * k
+
+    def run(device):
+        c = chain.ReceiverChain(rates=(rate,), max_length=length,
+                                params=ChainParams(chunk_size=4096,
+                                                   strides_per_step=2),
+                                ingest_dtype="int12", device=device)
+        pkts = []
+        for i in range(0, n, 5000):
+            pkts += c.process_samples((s_re[i:i + 5000], s_im[i:i + 5000]))
+        return [(p.payload, p.rate, p.start) for p in pkts + c.flush()], c
+
+    want, _ = run("cpu")
+    before = viterbi_cuda.launches["viterbi_acs_windowed"]
+    got, c = run(cuda_device)
+    assert got == want and len(got) == 6
+    assert viterbi_cuda.launches["viterbi_acs_windowed"] > before
+    assert c.stats.crc_ok == 6
