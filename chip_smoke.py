@@ -39,19 +39,42 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      frames of every rate, ~4 M samples; every frame delivered with its
      rate; samples/s;
   9. a 4-channel chain (int10, 1,048,576-sample supersteps) on ~1 M
-     samples per channel; every frame delivered with its channel.
-Each main-path phase (4, 6-9) sets the kernels' launch counts to 0 just
+     samples per channel; every frame delivered with its channel;
+ 10. the ACS ablation kernel (every variant of
+     fun_ofdm_tpu_torch.tools.viterbi_acs_ab) against its plain version on
+     the card, bit-exact (final metrics and decisions, tolerance 0): 32
+     frames x 2,048 bits of noisy input, of mixed lengths and inits, and
+     of all-erasure input, and the harness's own input (128 x 12,054
+     bits); then the harness at its defaults (its main path), printing
+     every variant's time;
+ 11. a CFO-impaired dense stream through ReceiverChain(lts_segments=4,
+     cfo_correct=True, int10): 300 distinct 1500-byte RATE_3_4_QAM16
+     frames back to back (2,140,096 samples), rotated by 4e-3 and, in a
+     second pass, 8e-3 cycles/sample, at 24 dB SNR; every frame delivered
+     once with its payload and start, crc_fail 0; samples/s, beside
+     phase 6's;
+ 12. the BER/PER harness (fun_ofdm_tpu_torch.sim.ber) at
+     tools/ber_baseline.py's configuration: 11 rates, sync AWGN, 13 SNR
+     points x 512 frames of 200 bytes; detect mode for 3 rates at 6
+     points x 256 frames; cfo (2e-4, corrected), multipath and
+     cfo+multipath at RATE_3_4_QAM16; every PER within
+     4 sqrt(2 p (1 - p) / n) + 2 / n of docs/ber_data.json.
+Each main-path phase (4, 6-12) sets the kernels' launch counts to 0 just
 before it runs and reads them just after. The last two lines are a JSON
-object with one entry per kernel and the JSON result line
+object with one entry per kernel (its time, its plain version's, and its
+bound: the larger of its bytes over the card's memory rate and its
+integer operations over the card's int32 rate) and the JSON result line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -62,8 +85,26 @@ CHANNELS = 16
 FRAMES_PER_CHANNEL = 32
 TAIL = 2048
 SEED = 0
-#: where the streaming phases (6-9) run
+#: where the streaming phases (6-9, 11) and the harnesses (10, 12) run
 DEVICE = "cuda"
+
+#: the H100 SXM's published peaks (NVIDIA data sheet; the Hopper
+#: architecture white paper gives 64 INT32 lanes per SM, 132 SMs, and the
+#: data sheet a 1.98 GHz boost clock): memory bytes/s and int32 ops/s
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: integer operations of one ACS trellis step, as few as the recurrence
+#: needs: a step has 4 distinct branch metrics, one per code-bit parity
+#: pair: their 4 soft sums take 5 ops (s0 + s1, 255 - s1, s0 + (255 - s1),
+#: and the other two as 510 minus those), each + 1 and >> 3 (8 ops), and
+#: the 4 complements 63 - t (4 ops); then 64 new states of 6 (two adds, two
+#: saturations, a compare, a select) and the renormalisation check. The
+#: renormalisation itself, which depends on the data, is left out, so the
+#: bound stays a lower bound
+ACS_OPS_PER_STEP = 5 + 4 * 2 + 4 + 64 * 6 + 1
+#: one chainback step: a shift and a mask to read the bit, a store, and
+#: the state update's shift, shift and or
+CHAINBACK_OPS_PER_STEP = 6
 
 
 def card_line() -> str:
@@ -87,6 +128,36 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def register_report(ptxas_log: str) -> dict:
+    """{kernel: registers} from nvcc's -Xptxas -v report; a template
+    instance is named by its mode, e.g. acs_ablate_kernel<0>."""
+    out, name = {}, None
+    for ln in ptxas_log.splitlines():
+        entry = re.search(r"entry function '(\w+)'", ln)
+        if entry:
+            m = re.search(r"\d+([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
+                          entry.group(1))
+            name = entry.group(1) if m is None else (
+                m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""))
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs and name is not None:
+            out[name] = int(regs.group(1))
+            name = None
+    return out
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for work that must move
+    nbytes and do ops integer operations, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def unpack_words(words: torch.Tensor) -> torch.Tensor:
@@ -139,6 +210,10 @@ def kernel_case(name, soft_np, nbits, nbits_dynamic=None, init=1,
                                 reps=5)
         rec["chainback_ms"] = cuda_ms(
             lambda: viterbi_cuda.chainback(words, nbits), reps=5)
+        rec["acs_bound"] = bound(nbytes(soft, steps, init_t, words),
+                                 int(steps.sum()) * ACS_OPS_PER_STEP)
+        rec["chainback_bound"] = bound(nbytes(words, bits),
+                                       bsz * nbits * CHAINBACK_OPS_PER_STEP)
     print("kernel vs plain:", json.dumps(rec), flush=True)
     if acs_err or cb_err:
         raise AssertionError(f"kernel disagrees with its plain version: {rec}")
@@ -236,19 +311,23 @@ def slice_phase() -> tuple[dict, dict]:
     return rec, launches
 
 
-def kernel_record(kernel: str, line: int, cases: list, launches: dict):
-    """The result entry of kernel "acs", "chainback", "acs_windowed" or
-    "splice_guard"; `line` is where its TPU counterpart starts (for the
-    exact pair, the radix-4 kernel the TPU path runs). The first case of
-    `cases` is the timed one."""
+def kernel_record(kernel: str, replaces: str, cases: list, launches: dict):
+    """The result entry of kernel "acs", "chainback", "acs_windowed",
+    "splice_guard" or "acs_ablate"; `replaces` is where its TPU
+    counterpart starts (for the exact pair, the radix-4 kernel the TPU
+    path runs). The first case of `cases` is the timed one. No single
+    PyTorch call computes a Viterbi step, so library_ms is null."""
     name = f"viterbi_{kernel}"
+    bound_ms, bound_by = cases[0][f"{kernel}_bound"]
     return {"name": name, "route": "cuda",
             "source": "fun_ofdm_tpu_torch/csrc/viterbi.cu",
-            "replaces": f"fun_ofdm_tpu/ops/viterbi_pallas.py:{line}",
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(c[f"{kernel}_max_abs_err"] for c in cases),
             "ms": cases[0][f"{kernel}_ms"],
-            "plain_ms": cases[0][f"{kernel}_plain_ms"]}
+            "plain_ms": cases[0][f"{kernel}_plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def blocked_case(name, soft_np, nbits, n_blocks=16, warmup=128,
@@ -318,6 +397,15 @@ def blocked_case(name, soft_np, nbits, n_blocks=16, warmup=128,
             lambda: viterbi_cuda.splice_guard(
                 win_bits.T, steps, nbits, geo.n_blocks, geo.tb, geo.wf,
                 geo.ov, geo.trim), reps=5)
+        run = viterbi_blocked.window_steps(steps, geo)  # steps per lane
+        rec["acs_windowed_bound"] = bound(
+            nbytes(soft, steps, words), int(run.sum()) * ACS_OPS_PER_STEP)
+        # the splice copies each bit once, the guard compares each cut's
+        # trimmed overlap once
+        rec["splice_guard_bound"] = bound(
+            nbytes(win_bits, steps, bits, ok.int()),
+            frames * (nbits + (geo.n_blocks - 1)
+                      * (geo.ov - 2 * geo.trim) * 3))
         rec["blocked_decode_ms"] = cuda_ms(kernels, reps=5)
         rec["exact_decode_ms"] = cuda_ms(
             lambda: viterbi.viterbi_decode(soft, nbits,
@@ -653,6 +741,207 @@ def multichannel_phase() -> dict:
     return rec
 
 
+def ablate_case(name, soft_np, steps_np, init_np, timed=False):
+    """Every ACS ablation variant's kernel vs its plain version on the
+    card, on one input: final metrics and decision words, tolerance 0."""
+    from fun_ofdm_tpu_torch.ops import viterbi_ab, viterbi_cuda
+
+    dev = torch.device("cuda")
+    soft = torch.from_numpy(soft_np).to(dev)
+    steps = torch.from_numpy(steps_np.astype(np.int32)).to(dev)
+    init = torch.from_numpy(init_np.astype(np.int32)).to(dev)
+    rec = {"case": name, "batch": soft.shape[0],
+           "steps": soft.shape[1] // 2, "modes": {}}
+    err = 0
+    for mode in viterbi_ab.MODES:
+        final, dec = viterbi_cuda.acs_ablate(soft, steps, init, mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_final, p_dec = viterbi_ab.acs_ablate_plain(soft, steps, init, mode)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        e = int((final - p_final).abs().max()) if final.numel() else 0
+        if (dec is None) != (p_dec is None):
+            raise AssertionError(f"{mode}: decisions stored by one side only")
+        if dec is not None and dec.numel():
+            e = max(e, int((unpack_words(dec).int()
+                            - unpack_words(p_dec).int()).abs().max()))
+        rec["modes"][mode] = {"max_abs_err": e, "plain_ms": plain_ms}
+        err = max(err, e)
+        if mode == "full":
+            rec["acs_ablate_plain_ms"] = plain_ms
+            if timed:
+                rec["acs_ablate_ms"] = cuda_ms(
+                    lambda: viterbi_cuda.acs_ablate(soft, steps, init,
+                                                    "full"), reps=5)
+                rec["acs_ablate_bound"] = bound(
+                    nbytes(soft, steps, init, dec, final),
+                    int(steps.sum()) * ACS_OPS_PER_STEP)
+    rec["acs_ablate_max_abs_err"] = err
+    print("ablate vs plain:", json.dumps(rec), flush=True)
+    if err:
+        raise AssertionError(f"an ablation kernel disagrees with its plain "
+                             f"version: {rec}")
+    return rec
+
+
+def ablation_phase() -> tuple[list, dict]:
+    """Phase 10: the ablation kernel against its plain version, then the
+    A/B harness at its defaults as the main path."""
+    from fun_ofdm_tpu_torch.ops import viterbi
+    from fun_ofdm_tpu_torch.tools import viterbi_acs_ab
+
+    rng = np.random.default_rng(SEED + 10)
+    batch, nbits = 128, 12054
+    main_soft = viterbi_acs_ab.make_soft(batch, nbits)
+    main_steps = viterbi.step_counts(nbits, None, (batch,), "cpu").numpy()
+    cases = [
+        ablate_case("harness_input", main_soft, main_steps,
+                    np.ones(batch), timed=True),
+        ablate_case("noisy", noisy_soft(rng, 32, 2048, 100),
+                    np.full(32, 2054), np.ones(32)),
+        ablate_case("mixed_lengths", noisy_soft(rng, 32, 2048, 100),
+                    rng.integers(0, 2055, 32) // 2 * 2,
+                    rng.integers(0, 2, 32)),
+        ablate_case("erasure", np.full((32, 2 * 2054), 127, np.int32),
+                    np.full(32, 2054), np.ones(32)),
+    ]
+    out, launches = launches_of(lambda: viterbi_acs_ab.run(
+        batch, nbits, reps=10, blocked=16, device=DEVICE, verbose=False))
+    rec = {"harness_ms": out["ms"], "vs_full": out["vs_full"],
+           "bit_exact": out["bit_exact"],
+           "blocked_bit_exact": out["blocked_bit_exact"],
+           "merge_ok": out["merge_ok"], "launches": launches}
+    print("acs ablation harness:", json.dumps(rec), flush=True)
+    if not (out["bit_exact"] and out["blocked_bit_exact"]) \
+            or launches["viterbi_acs_ablate"] == 0:
+        raise AssertionError(f"the harness failed: {rec}")
+    return cases, launches
+
+
+def cfo_stream_phase(dense_samples_per_s: float, frames: int = 300) -> dict:
+    """Phase 11: a CFO-impaired dense stream through the CFO chain;
+    dense_samples_per_s is phase 6's rate, printed beside this one's."""
+    from fun_ofdm_tpu_torch.config import ChainParams
+    from fun_ofdm_tpu_torch.models import tx
+    from fun_ofdm_tpu_torch.rates import Rate
+    from fun_ofdm_tpu_torch.runtime.chain import ReceiverChain
+
+    rate, tail = Rate[RATE_NAME], 4096
+    rng = np.random.default_rng(SEED + 11)
+    payloads = rng.integers(0, 256, size=(frames, LENGTH), dtype=np.uint8)
+    fre, fim = (f.cpu().numpy() for f in tx.build_frame_p(
+        torch.from_numpy(payloads).to(DEVICE), rate))
+    frame_len = fre.shape[1]
+    base = np.concatenate([(fre + 1j * fim).reshape(-1),
+                           np.zeros(tail, np.complex64)])
+    n = base.size
+    prms = np.sqrt(np.mean(np.abs(fre + 1j * fim) ** 2))
+    sigma = prms / np.sqrt(2 * 10 ** (24 / 10))            # 24 dB SNR
+    planted = {(0, k * frame_len): (payloads[k].tobytes(), rate)
+               for k in range(frames)}
+
+    def chain():
+        return ReceiverChain(rates=(rate,), max_length=LENGTH,
+                             params=ChainParams(lts_segments=4),
+                             cfo_correct=True, ingest_dtype="int10",
+                             device=DEVICE)
+
+    rec = {"samples": n, "frames": frames, "snr_db": 24, "passes": [],
+           "phase6_dense_samples_per_s": dense_samples_per_s}
+    launches_all = None
+    for cfo in (4e-3, 8e-3):
+        # the rotation's angle in float64 on the host, as the JAX test
+        rot = base * np.exp(2j * np.pi * cfo * np.arange(n))
+        rot = rot + sigma * (rng.normal(size=n) + 1j * rng.normal(size=n))
+        s_re = rot.real.astype(np.float32)
+        s_im = rot.imag.astype(np.float32)
+        pieces = [(s_re[i:i + 4096], s_im[i:i + 4096])
+                  for i in range(0, n, 4096)]
+        if launches_all is None:
+            # warm-up on the first superstep, a profile of the second
+            warm = chain()
+            k = warm.step // 4096
+            for p in pieces[:k]:
+                warm.process_samples(p)
+            rec["profile_one_superstep"] = profile_feed(warm,
+                                                        pieces[k:2 * k])
+            warm.flush()
+        c = chain()
+        t0 = time.perf_counter()
+        pkts, launches = launches_of(lambda: run_chain(c, pieces))
+        wall_s = time.perf_counter() - t0
+        check_packets(pkts, planted, f"CFO {cfo} stream")
+        if c.stats.crc_fail:
+            raise AssertionError(f"CFO {cfo}: crc_fail {c.stats.crc_fail}")
+        rec["passes"].append({
+            "cfo_cycles_per_sample": cfo, "delivered": len(pkts),
+            "wall_s": wall_s, "samples_per_s": n / wall_s,
+            "stats": c.stats.as_dict(), "launches": launches})
+        launches_all = launches if launches_all is None else {
+            k: launches_all[k] + v for k, v in launches.items()}
+    rec["launches"] = launches_all
+    print("stream cfo:", json.dumps(rec), flush=True)
+    return rec
+
+
+def ber_phase(root) -> dict:
+    """Phase 12: tools/ber_baseline.py's configuration through the port's
+    harness, held to the JAX harness's artifact (docs/ber_data.json)."""
+    from fun_ofdm_tpu_torch.rates import ALL_RATES, Rate
+    from fun_ofdm_tpu_torch.sim import ber
+
+    data = json.loads((root / "docs" / "ber_data.json").read_text())
+    length, frames = data["length"], data["frames_per_point"]
+    snr_all = data["snr_db"]
+    ref = {(c["mode"], c["channel"], c["rate"]): c for c in data["curves"]}
+    det_rates = (Rate.RATE_1_2_BPSK, Rate.RATE_3_4_QAM16,
+                 Rate.RATE_3_4_QAM64)
+    imp = Rate.RATE_3_4_QAM16
+    taps = (1.0, 0.25 + 0.15j)
+    runs = [("sync", "awgn", r, {}) for r in ALL_RATES]
+    runs += [("detect", "awgn", r, {"detect": True}) for r in det_rates]
+    runs += [("sync", "cfo", imp, {"cfo_norm": 2e-4, "cfo_correct": True}),
+             ("sync", "multipath", imp, {"taps": taps}),
+             ("sync", "cfo+multipath", imp,
+              {"cfo_norm": 2e-4, "cfo_correct": True, "taps": taps})]
+
+    def all_curves():
+        out = []
+        for mode, chan, rate, kw in runs:
+            c = ref[(mode, chan, rate.name)]
+            snrs, n = c.get("snr_db", snr_all), c["n_frames"]
+            t0 = time.perf_counter()
+            r = ber.error_rates(rate, length, snrs, n_frames=n, batch=n,
+                                seed=SEED, device=DEVICE, **kw)
+            torch.cuda.synchronize()
+            lim = ber.binomial_bound(r.per, c["per"], n)
+            diff = np.abs(r.per - np.asarray(c["per"]))
+            out.append({"mode": mode, "channel": chan, "rate": rate.name,
+                        "frames": n, "points": len(snrs),
+                        "wall_s": time.perf_counter() - t0,
+                        "per": r.per.tolist(),
+                        "max_per_diff": float(diff.max()),
+                        "worst_diff_over_bound": float((diff / lim).max()),
+                        "within": bool((diff <= lim).all())})
+            if mode == "sync":
+                out[-1]["max_ber_diff"] = float(
+                    np.abs(r.ber - np.asarray(c["ber"])).max())
+        return out
+
+    t0 = time.perf_counter()
+    curves, launches = launches_of(all_curves)
+    wall_s = time.perf_counter() - t0
+    rec = {"wall_s": wall_s, "curves": curves, "launches": launches,
+           "frames_decoded": sum(c["frames"] * c["points"] for c in curves)}
+    print("ber harness:", json.dumps(rec), flush=True)
+    bad = [c for c in curves if not c["within"]]
+    if bad:
+        raise AssertionError(f"PER outside the binomial bound of "
+                             f"docs/ber_data.json: {bad}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -667,22 +956,32 @@ def main() -> int:
     viterbi_cuda.build()
     build_s = time.perf_counter() - t0
     log = viterbi_cuda.library_path().with_suffix(".log")
-    report = [ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln] if log.exists() else []
-    print(f"build: {build_s:.2f} s; " + " | ".join(report), flush=True)
+    report = register_report(log.read_text()) if log.exists() else {}
+    print(f"build: {build_s:.2f} s; registers: {json.dumps(report)}",
+          flush=True)
 
     cases = kernel_phase()
     _, launches = slice_phase()
     blocked = blocked_phase()
-    for rec in (dense_stream_phase(), sparse_stream_phase(),
-                all_rates_phase(), multichannel_phase()):
+    dense = dense_stream_phase()
+    for rec in (dense, sparse_stream_phase(), all_rates_phase(),
+                multichannel_phase()):
         for name, count in rec["launches"].items():
             launches[name] += count
+    ablate, ab_launches = ablation_phase()
+    for rec in ({"launches": ab_launches},
+                cfo_stream_phase(dense["samples_per_s"]),
+                ber_phase(Path(__file__).resolve().parent)):
+        for name, count in rec["launches"].items():
+            launches[name] += count
+    vp = "fun_ofdm_tpu/ops/viterbi_pallas.py"
     print(json.dumps({"kernels": [
-        kernel_record("acs", 261, cases, launches),
-        kernel_record("chainback", 394, cases + blocked, launches),
-        kernel_record("acs_windowed", 571, blocked, launches),
-        kernel_record("splice_guard", 644, blocked, launches),
+        kernel_record("acs", f"{vp}:261", cases, launches),
+        kernel_record("chainback", f"{vp}:394", cases + blocked, launches),
+        kernel_record("acs_windowed", f"{vp}:571", blocked, launches),
+        kernel_record("splice_guard", f"{vp}:644", blocked, launches),
+        kernel_record("acs_ablate", "tools/viterbi_acs_ab.py:148", ablate,
+                      launches),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

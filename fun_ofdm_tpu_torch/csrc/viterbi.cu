@@ -47,6 +47,23 @@
 // chain of one window, about 12x shorter than a whole frame's. The
 // design does nothing more about occupancy yet: 64 to 1,024 warps do not
 // fill the card, and the overlap adds 2 x 128 steps per window.
+//
+// ACS ablation. `acs_ablate_kernel<Mode>` replaces tools/viterbi_acs_ab.py's
+// `acs_only` (the pallas_call of `_acs_kernel` alone) and its
+// `make_kernel` bodies, ACS steps with pieces removed to find where the
+// step's time goes. Here each variant is the warp-per-trellis step above
+// with one piece taken out, and a defined function with a plain version
+// (ops/viterbi_ab.py): kModeFull is the production step (decision words
+// bit-equal to acs_kernel's); kModeNoRenorm drops the > 210 check and the
+// warp minimum; kModeNoShuffle reads each lane's own two metrics instead
+// of the four shuffles (the TPU's state-interleave removal; the metrics
+// then follow the lane layout, not the trellis); kModeNoStore writes no
+// decisions (the ballots go with them); kModeMinimal is the tool's 2-op
+// floor, m = min(m + s0, 255) with decisions m <= 128; kModeUnrolled is
+// the production step with the 32-step loop unrolled (the TPU's
+// full-static). Every variant writes its 64 final metrics per trellis, so
+// none is dead code. What bounds them is what bounds acs_kernel: the
+// serial step chain of each warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,15 +77,29 @@ constexpr int kTail = 6;  // K - 1
 
 __device__ __forceinline__ bool parity_of(int x) { return __popc(x) & 1; }
 
+// The ACS step variants of acs_ablate_kernel (see the note at the top).
+enum AcsMode : int {
+  kModeFull = 0,       // the production step
+  kModeNoRenorm = 1,   // no renormalisation check or minimum
+  kModeNoShuffle = 2,  // each lane's own metrics instead of the shuffles
+  kModeNoStore = 3,    // no decision write
+  kModeMinimal = 4,    // m = min(m + s0, 255), decision = (m <= 128)
+  kModeUnrolled = 5,   // the production step, 32-step loop fully unrolled
+};
+
 // One warp runs one trellis. Lane l holds the metrics of states l ("lo")
 // and l + 32 ("hi"). New state s comes from butterfly j = s >> 1, i.e.
 // from old states j and j + 32; lane l's new states l and l + 32 use
 // butterflies l >> 1 and 16 + (l >> 1). Decisions go to column `col` of
-// the (total_steps, batch) word array, zero for steps >= n_steps.
+// the (total_steps, batch) word array, zero for steps >= n_steps. Mode
+// selects an ablation variant (kModeFull is the production step); with
+// kWriteFinal the 64 metrics after the last step are written to
+// final_metrics[col * 64 + lane] (lo) and [col * 64 + 32 + lane] (hi).
+template <int Mode = kModeFull, bool kWriteFinal = false>
 __device__ __forceinline__ void acs_trellis(
     const int2* __restrict__ pairs, int n_steps, bool exact_init,
     unsigned long long* __restrict__ dec, int batch, int col,
-    int total_steps) {
+    int total_steps, int* __restrict__ final_metrics = nullptr) {
   const int lane = threadIdx.x;
   const int j_lo = lane >> 1;
   const int j_hi = 16 + (lane >> 1);
@@ -77,6 +108,7 @@ __device__ __forceinline__ void acs_trellis(
   const bool e1_lo = parity_of((2 * j_lo) & kPoly1);
   const bool e0_hi = parity_of((2 * j_hi) & kPoly0);
   const bool e1_hi = parity_of((2 * j_hi) & kPoly1);
+  constexpr bool kStore = Mode != kModeNoStore;
 
   int m_lo = (lane == 0 && exact_init) ? 0 : 63;
   int m_hi = 63;
@@ -85,13 +117,30 @@ __device__ __forceinline__ void acs_trellis(
     int2 mine = make_int2(0, 0);
     if (t0 + lane < n_steps) mine = pairs[t0 + lane];
     const int n_in = min(32, n_steps - t0);
-    for (int i = 0; i < n_in; ++i) {
+    auto step = [&](int i) {
       const int s0 = __shfl_sync(kFull, mine.x, i);
       const int s1 = __shfl_sync(kFull, mine.y, i);
-      const int old_lo_a = __shfl_sync(kFull, m_lo, j_lo);
-      const int old_hi_a = __shfl_sync(kFull, m_hi, j_lo);
-      const int old_lo_b = __shfl_sync(kFull, m_lo, j_hi);
-      const int old_hi_b = __shfl_sync(kFull, m_hi, j_hi);
+      if constexpr (Mode == kModeMinimal) {
+        m_lo = min(m_lo + s0, 255);
+        m_hi = min(m_hi + s0, 255);
+        const unsigned w_lo = __ballot_sync(kFull, m_lo <= 128);
+        const unsigned w_hi = __ballot_sync(kFull, m_hi <= 128);
+        if (lane == i) {
+          dec[(size_t)(t0 + i) * batch + col] =
+              ((unsigned long long)w_hi << 32) | w_lo;
+        }
+        return;
+      }
+      int old_lo_a, old_hi_a, old_lo_b, old_hi_b;
+      if constexpr (Mode == kModeNoShuffle) {
+        old_lo_a = old_lo_b = m_lo;
+        old_hi_a = old_hi_b = m_hi;
+      } else {
+        old_lo_a = __shfl_sync(kFull, m_lo, j_lo);
+        old_hi_a = __shfl_sync(kFull, m_hi, j_lo);
+        old_lo_b = __shfl_sync(kFull, m_lo, j_hi);
+        old_hi_b = __shfl_sync(kFull, m_hi, j_hi);
+      }
 
       const int t_a = ((e0_lo ? 255 - s0 : s0) + (e1_lo ? 255 - s1 : s1) + 1) >> 3;
       const int t_b = ((e0_hi ? 255 - s0 : s0) + (e1_hi ? 255 - s1 : s1) + 1) >> 3;
@@ -105,24 +154,44 @@ __device__ __forceinline__ void acs_trellis(
       int n_lo = d_a ? c_hi_a : c_lo_a;
       int n_hi = d_b ? c_hi_b : c_lo_b;
 
-      const unsigned w_lo = __ballot_sync(kFull, d_a);
-      const unsigned w_hi = __ballot_sync(kFull, d_b);
-      if (lane == i) {
-        dec[(size_t)(t0 + i) * batch + col] =
-            ((unsigned long long)w_hi << 32) | w_lo;
+      if constexpr (kStore) {
+        const unsigned w_lo = __ballot_sync(kFull, d_a);
+        const unsigned w_hi = __ballot_sync(kFull, d_b);
+        if (lane == i) {
+          dec[(size_t)(t0 + i) * batch + col] =
+              ((unsigned long long)w_hi << 32) | w_lo;
+        }
       }
-      if (__shfl_sync(kFull, n_lo, 0) > 210) {
-        const int m = __reduce_min_sync(kFull, min(n_lo, n_hi));
-        n_lo -= m;
-        n_hi -= m;
+      if constexpr (Mode != kModeNoRenorm) {
+        if (__shfl_sync(kFull, n_lo, 0) > 210) {
+          const int m = __reduce_min_sync(kFull, min(n_lo, n_hi));
+          n_lo -= m;
+          n_hi -= m;
+        }
       }
       m_lo = n_lo;
       m_hi = n_hi;
+    };
+    if constexpr (Mode == kModeUnrolled) {
+      if (n_in == 32) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) step(i);
+      } else {
+        for (int i = 0; i < n_in; ++i) step(i);
+      }
+    } else {
+      for (int i = 0; i < n_in; ++i) step(i);
     }
   }
-  // steps past the trellis's count record zero decisions
-  for (int t = n_steps + lane; t < total_steps; t += 32) {
-    dec[(size_t)t * batch + col] = 0ull;
+  if constexpr (kStore) {
+    // steps past the trellis's count record zero decisions
+    for (int t = n_steps + lane; t < total_steps; t += 32) {
+      dec[(size_t)t * batch + col] = 0ull;
+    }
+  }
+  if constexpr (kWriteFinal) {
+    final_metrics[(size_t)col * 64 + lane] = m_lo;
+    final_metrics[(size_t)col * 64 + 32 + lane] = m_hi;
   }
 }
 
@@ -134,6 +203,22 @@ acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
   const int frame = blockIdx.x;
   acs_trellis(reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride),
               steps[frame], init[frame] == 1, dec, batch, frame, total_steps);
+}
+
+// One warp per frame, an ablation variant of acs_kernel's step, writing
+// the final metrics (and, except kModeNoStore, the decision words).
+template <int Mode>
+__global__ void __launch_bounds__(32)
+acs_ablate_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
+                  const int* __restrict__ init,
+                  unsigned long long* __restrict__ dec,
+                  int* __restrict__ final_metrics, int batch, int soft_stride,
+                  int total_steps) {
+  const int frame = blockIdx.x;
+  acs_trellis<Mode, true>(
+      reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride),
+      steps[frame], init[frame] == 1, dec, batch, frame, total_steps,
+      final_metrics);
 }
 
 // One warp per (frame, block) lane b = frame * n_blocks + blk. The window
@@ -231,6 +316,32 @@ int viterbi_acs(const int* soft, const int* steps, const int* init,
     acs_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         soft, steps, init, dec, batch, soft_stride, total_steps);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The ablation variants: as viterbi_acs, plus final: (batch, 64) int32;
+// dec may be null for mode kModeNoStore. An unknown mode returns
+// cudaErrorInvalidValue.
+int viterbi_acs_ablate(const int* soft, const int* steps, const int* init,
+                       unsigned long long* dec, int* final_metrics, int batch,
+                       int soft_stride, int total_steps, int mode,
+                       void* stream) {
+  if (batch <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FUN_OFDM_ABLATE(M)                                              \
+  acs_ablate_kernel<M><<<batch, 32, 0, st>>>(soft, steps, init, dec,    \
+                                             final_metrics, batch,      \
+                                             soft_stride, total_steps)
+  switch (mode) {
+    case kModeFull: FUN_OFDM_ABLATE(kModeFull); break;
+    case kModeNoRenorm: FUN_OFDM_ABLATE(kModeNoRenorm); break;
+    case kModeNoShuffle: FUN_OFDM_ABLATE(kModeNoShuffle); break;
+    case kModeNoStore: FUN_OFDM_ABLATE(kModeNoStore); break;
+    case kModeMinimal: FUN_OFDM_ABLATE(kModeMinimal); break;
+    case kModeUnrolled: FUN_OFDM_ABLATE(kModeUnrolled); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FUN_OFDM_ABLATE
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -198,7 +198,8 @@ _HEADER_SPAN = 400
 def decode_headers(stream: torch.Tensor, max_frames: int,
                    params: ChainParams = DEFAULT_PARAMS,
                    drop_count_limit: int | None = None,
-                   hdr_slots: int | None = None) -> dict:
+                   hdr_slots: int | None = None,
+                   cfo_correct: bool = False) -> dict:
     """Detect frames in (..., n) complex streams and decode only their
     SIGNAL headers, every slot of every stream in one batch.
 
@@ -209,7 +210,10 @@ def decode_headers(stream: torch.Tensor, max_frames: int,
     to the blocked extractor's cap (counted below drop_count_limit); and
     n_detected (...,), all detections. Slots are ordered by position, so
     the first hdr_slots lose nothing whenever n_detected <= hdr_slots; a
-    caller seeing more re-runs without hdr_slots.
+    caller seeing more re-runs without hdr_slots. cfo_correct: derotate
+    each header by the coarse + fine cascade's estimate, as the payload
+    decode does (a large offset rotates the SIGNAL symbol itself by
+    several radians at 8e-3 cycles/sample).
     """
     starts, valid, dropped = detect_frames(stream, max_frames, params,
                                            return_dropped=True,
@@ -219,8 +223,8 @@ def decode_headers(stream: torch.Tensor, max_frames: int,
         starts, valid = starts[..., :hdr_slots], valid[..., :hdr_slots]
     # pad so that the slices of a header near the end stay aligned
     padded = torch.nn.functional.pad(stream, (0, _HEADER_SPAN))
-    lts, syms = rx_model.extract_frames(padded, torch.where(valid, starts, 0),
-                                        0)
+    lts, syms = rx_model.sync_frames(padded, torch.where(valid, starts, 0),
+                                     0, cfo_correct)
     data = rx_model.equalize_and_track(syms, rx_model.channel_estimate(lts))
     rate_field, hdr_length, header_ok = ppdu_model.decode_header(
         data[..., 0, :])
@@ -240,11 +244,9 @@ def decode_headers_p(stream, max_frames: int,
                      drop_count_limit: int | None = None,
                      cfo_correct: bool = False,
                      hdr_slots: int | None = None) -> dict:
-    """Planar form of decode_headers: stream (re, im) of (..., n).
-    cfo_correct=True is not ported yet."""
-    rx_model._no_cfo(cfo_correct)
+    """Planar form of decode_headers: stream (re, im) of (..., n)."""
     return decode_headers(torch.complex(*stream), max_frames, params,
-                          drop_count_limit, hdr_slots)
+                          drop_count_limit, hdr_slots, cfo_correct)
 
 
 def _receive_dynamic(stream: torch.Tensor, frame_len_max: int,

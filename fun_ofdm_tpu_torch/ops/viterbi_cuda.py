@@ -3,7 +3,8 @@
 The kernels replace the Pallas kernels of fun_ofdm_tpu/ops/viterbi_pallas.py:
 forward ACS and survivor chainback (radix 4 and radix 2), and the
 block-overlap decode `_blocked_decode_impl` (a windowed ACS, the same
-chainback, and a splice + merge-guard kernel). The source is
+chainback, and a splice + merge-guard kernel), and the ACS ablation
+variants of tools/viterbi_acs_ab.py (`acs_ablate`). The source is
 compiled with nvcc for sm_90a into a shared library with a plain C
 interface, at first use, into csrc/build/ (keyed by a hash of the source
 and flags); importing this module builds nothing. Each wrapper checks its
@@ -11,8 +12,9 @@ tensors, launches on the current CUDA stream, raises when the launch
 fails, and counts its launches in `launches`.
 
 The plain versions are ops/viterbi.acs_plain and ops/viterbi.chainback_plain,
-and for the block-overlap pair ops/viterbi_blocked.acs_windowed_plain and
-ops/viterbi_blocked.splice_guard_plain.
+for the block-overlap pair ops/viterbi_blocked.acs_windowed_plain and
+ops/viterbi_blocked.splice_guard_plain, and for the ablation variants
+ops/viterbi_ab.acs_ablate_plain.
 """
 
 from __future__ import annotations
@@ -35,7 +37,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches since the last reset_launches(), by kernel name
 launches = {"viterbi_acs": 0, "viterbi_chainback": 0,
-            "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0}
+            "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0,
+            "viterbi_acs_ablate": 0}
+
+#: the ACS ablation variants, in csrc/viterbi.cu's AcsMode order
+ABLATE_MODES = ("full", "norenorm", "noshuffle", "nostore", "minimal",
+                "unrolled")
 
 
 def reset_launches() -> None:
@@ -92,6 +99,9 @@ def build() -> ctypes.CDLL:
     lib.viterbi_splice_guard.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
                                          cint, cint, cint, cint, ptr]
     lib.viterbi_splice_guard.restype = cint
+    lib.viterbi_acs_ablate.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
+                                       cint, cint, ptr]
+    lib.viterbi_acs_ablate.restype = cint
     return lib
 
 
@@ -112,6 +122,23 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _acs_inputs(soft: torch.Tensor, steps: torch.Tensor,
+                init: torch.Tensor):
+    """Check acs's inputs; returns (B, 2T, T, steps clamped to T)."""
+    if soft.dim() != 2 or soft.shape[1] % 2:
+        raise ValueError(f"soft must be (B, 2T), got {tuple(soft.shape)}")
+    bsz, width = soft.shape
+    _check(soft, "soft", torch.int32, (bsz, width))
+    _check(steps, "steps", torch.int32, (bsz,))
+    _check(init, "init", torch.int32, (bsz,))
+    if not (steps.device == init.device == soft.device):
+        raise ValueError("soft, steps and init must be on one device")
+    if soft.data_ptr() % 8:
+        raise ValueError("soft must be 8-byte aligned")
+    # a count past the trellis would read past the row
+    return bsz, width, width // 2, torch.clamp(steps, 0, width // 2)
+
+
 def acs(soft: torch.Tensor, steps: torch.Tensor,
         init: torch.Tensor) -> torch.Tensor:
     """Forward ACS on the card.
@@ -121,19 +148,7 @@ def acs(soft: torch.Tensor, steps: torch.Tensor,
     0 = uniform. Returns (T, B) int64 decision words: bit s of word
     [t, b] is state s's decision at step t, zero for t >= steps[b].
     """
-    if soft.dim() != 2 or soft.shape[1] % 2:
-        raise ValueError(f"soft must be (B, 2T), got {tuple(soft.shape)}")
-    bsz, width = soft.shape
-    total = width // 2
-    _check(soft, "soft", torch.int32, (bsz, width))
-    _check(steps, "steps", torch.int32, (bsz,))
-    _check(init, "init", torch.int32, (bsz,))
-    if not (steps.device == init.device == soft.device):
-        raise ValueError("soft, steps and init must be on one device")
-    if soft.data_ptr() % 8:
-        raise ValueError("soft must be 8-byte aligned")
-    # a count past the trellis would read past the row
-    steps = torch.clamp(steps, 0, total)
+    bsz, width, total, steps = _acs_inputs(soft, steps, init)
     dec = torch.empty((total, bsz), dtype=torch.int64, device=soft.device)
     if bsz == 0:
         return dec
@@ -258,3 +273,32 @@ def splice_guard(win_bits: torch.Tensor, steps: torch.Tensor, nbits: int,
         raise RuntimeError(
             f"viterbi_splice_guard launch failed: CUDA error {err}")
     return bits, ok.bool()
+
+
+def acs_ablate(soft: torch.Tensor, steps: torch.Tensor, init: torch.Tensor,
+               mode: str):
+    """One ACS ablation variant on the card (csrc/viterbi.cu, AcsMode).
+
+    Same inputs as acs. mode: one of ABLATE_MODES. Returns (final
+    metrics (B, 64) int32, lane l's two metrics at l and 32 + l; decision
+    words (T, B) int64 as acs returns them, or None for "nostore").
+    """
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"mode must be one of {ABLATE_MODES}, got {mode!r}")
+    bsz, width, total, steps = _acs_inputs(soft, steps, init)
+    final = torch.empty((bsz, 64), dtype=torch.int32, device=soft.device)
+    dec = None if mode == "nostore" else torch.empty(
+        (total, bsz), dtype=torch.int64, device=soft.device)
+    if bsz == 0:
+        return final, dec
+    lib = build()
+    with torch.cuda.device(soft.device):
+        err = lib.viterbi_acs_ablate(
+            soft.data_ptr(), steps.data_ptr(), init.data_ptr(),
+            None if dec is None else dec.data_ptr(), final.data_ptr(), bsz,
+            width, total, ABLATE_MODES.index(mode), _stream(soft.device))
+    launches["viterbi_acs_ablate"] += 1
+    if err:
+        raise RuntimeError(
+            f"viterbi_acs_ablate launch failed: CUDA error {err}")
+    return final, dec

@@ -28,10 +28,11 @@ A frame belongs to the superstep whose owned [0, step) region holds its
 preamble start; equal duplicate starts are dropped before decode, so
 every frame is delivered once.
 
-The host side is fun_ofdm_tpu's, reused by import: the native chunker
-(fun_ofdm_tpu.runtime.native) and the wire formats of
-fun_ofdm_tpu.runtime.chain, both numpy only. Not ported yet: the adaptive
-superstep ladder (ChainParams.latency_target_ms) and CFO correction.
+The host side is the port's own: the native chunker (runtime/native.py,
+csrc/stream_runtime.cpp) and the wire formats (runtime/wire.py), copies of
+fun_ofdm_tpu's. cfo_correct=True runs the coarse + fine CFO cascade in the
+header pass and in every decode. Not ported yet: the adaptive superstep
+ladder (ChainParams.latency_target_ms).
 """
 
 from __future__ import annotations
@@ -44,8 +45,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fun_ofdm_tpu.runtime import native
-from fun_ofdm_tpu.runtime.chain import (  # noqa: F401  (wire formats)
+from ..config import DEFAULT_PARAMS, ChainParams
+from ..models import frontend, rx
+from ..ops import viterbi_cuda
+from ..rates import ALL_RATES, Rate, params_for
+from . import native
+from .wire import (  # noqa: F401  (pack10: re-exported for callers)
     INGEST_FORMATS,
     PACKED_FORMATS,
     _dequantize_wire,
@@ -53,11 +58,6 @@ from fun_ofdm_tpu.runtime.chain import (  # noqa: F401  (wire formats)
     _unpack_np,
     pack10,
 )
-
-from ..config import DEFAULT_PARAMS, ChainParams
-from ..models import frontend, rx
-from ..ops import viterbi_cuda
-from ..rates import ALL_RATES, Rate, params_for
 
 #: detection + SIGNAL header need this much beyond a frame start
 #: (320 preamble + 80 SIGNAL + LTS search margin)
@@ -109,7 +109,7 @@ def _to_float(c: torch.Tensor, fmt: str, scale: float) -> torch.Tensor:
 
 
 def _headers_block(wr, wi, step: int, max_frames: int, n_hdr: int,
-                   params: ChainParams) -> torch.Tensor:
+                   params: ChainParams, cfo_correct: bool) -> torch.Tensor:
     """Detection + SIGNAL headers over the window's first step +
     DETECT_LEAD samples (the owned region and the lead a header needs),
     packed as a (C, 6, n_hdr) int32 block (rows: starts, valid,
@@ -119,7 +119,7 @@ def _headers_block(wr, wi, step: int, max_frames: int, n_hdr: int,
     n = step + DETECT_LEAD
     h = frontend.decode_headers_p(
         (wr[..., :n], wi[..., :n]), max_frames, params=params,
-        drop_count_limit=step,
+        drop_count_limit=step, cfo_correct=cfo_correct,
         hdr_slots=None if n_hdr == max_frames else n_hdr)
     rows = torch.stack([h[k].to(torch.int32) for k in
                         ("starts", "valid", "rate_field", "hdr_length",
@@ -156,23 +156,26 @@ def _pack_decode_rows(out: dict) -> torch.Tensor:
                      + [c[:, None].to(torch.uint8) for c in cols], dim=1)
 
 
-def _build_decode_fn(rate, bucket: int, max_length: int, impl: str):
+def _build_decode_fn(rate, bucket: int, max_length: int, impl: str,
+                     cfo_correct: bool = False):
     """Payload pass for one bucket: fn(wr, wi, starts) -> (bucket,
     max_length + 5) uint8 rows (see _pack_decode_rows). rate: a Rate
     (single-rate decode) or a tuple of Rates (any-rate decode). Multi-
     channel chains pass their (C, W) window with starts offset by
     channel * W; the flattened window serves every channel in one
-    decode."""
+    decode. cfo_correct: derotate every frame by its CFO estimate."""
     vimpl = _impl_for_bucket(impl, bucket)
 
     def fn(wr, wi, starts):
         stream = torch.complex(wr.reshape(-1), wi.reshape(-1))
         if isinstance(rate, tuple):
             out = rx.decode_frames_anyrate(stream, rate, max_length, starts,
-                                           viterbi_impl=vimpl)
+                                           viterbi_impl=vimpl,
+                                           cfo_correct=cfo_correct)
         else:
             out = rx.decode_frames_dynamic(stream, rate, max_length, starts,
-                                           viterbi_impl=vimpl)
+                                           viterbi_impl=vimpl,
+                                           cfo_correct=cfo_correct)
         return _pack_decode_rows(out)
 
     return fn
@@ -255,8 +258,9 @@ class ReceiverChain:
 
     Args:
       device: where the window lives and every device pass runs
-        ("cuda", "cuda:1", "cpu", a torch.device). Required: the chain
-        never picks one itself.
+        ("cuda" by default, "cuda:1", "cpu", a torch.device). The chain
+        never moves to another device by itself: a "cuda" chain without a
+        GPU fails.
       rates: rates to decode (default: all 11). The halo is sized by the
         longest frame any of them can produce at max_length.
       max_length: largest payload length to decode (reference
@@ -265,7 +269,11 @@ class ReceiverChain:
         strides_per_step=None means 1 on a CPU device and
         AUTO_STEP_SAMPLES // chunk_size (256 at 4096) on a GPU.
         latency_target_ms (the adaptive ladder) is not ported yet.
-      cfo_correct: CFO correction is not ported yet; True raises.
+      cfo_correct: estimate each frame's carrier offset (coarse STS +
+        fine LTS cascade) and derotate it, in the header pass and in the
+        payload decode. Pair with ChainParams(lts_segments=4) for offsets
+        past ~3e-3 cycles/sample, where the coherent LTS correlation of
+        the default detection collapses.
       verbose: print "Invalid CRC (length N)" to stderr on CRC failures
         (src/ppdu.cpp:276).
       pipeline_depth: supersteps each stage keeps in flight before the
@@ -300,14 +308,10 @@ class ReceiverChain:
                  decode_mode: str = "auto",
                  channels: int = 1,
                  prewarm_exact: bool | None = None,
-                 *, device):
+                 device="cuda"):
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no chain for device {self.device}")
-        if cfo_correct:
-            raise NotImplementedError(
-                "cfo_correct=True: the carrier-offset estimators are not "
-                "ported yet (ROADMAP.md, Queue 1 item 1)")
         if params.latency_target_ms is not None:
             raise NotImplementedError(
                 "ChainParams.latency_target_ms: the adaptive superstep "
@@ -328,6 +332,7 @@ class ReceiverChain:
                     f"ingest_dtype='int12'.")
         self.max_length = int(max_length)
         self.params = params
+        self.cfo_correct = bool(cfo_correct)
         self.ingest_dtype = ingest_dtype
         self.channels = int(channels)
         if self.channels < 1:
@@ -399,7 +404,8 @@ class ReceiverChain:
         impl = "exact" if exact else self.viterbi_impl
         if rate is None:
             rate = self.rates
-        return _build_decode_fn(rate, bucket, self.max_length, impl)
+        return _build_decode_fn(rate, bucket, self.max_length, impl,
+                                self.cfo_correct)
 
     # --- streaming API ----------------------------------------------------
 
@@ -609,7 +615,7 @@ class ReceiverChain:
         if gpos + k <= 0:
             return  # warm-up: owned region entirely before the stream
         hdr = _headers_block(wr, wi, self.step, self.max_frames,
-                             self._n_hdr, self.params)
+                             self._n_hdr, self.params, self.cfo_correct)
         self.stats.windows += 1
         self._hdr_q.append((gpos, k, self._dev_win, _Fetch(hdr)))
 
@@ -721,7 +727,7 @@ class ReceiverChain:
                 # full-capacity pass on the (unchanged) window
                 self.stats.header_overflows += 1
                 full = _headers_block(win[0], win[1], self.step, cap, cap,
-                                      self.params)
+                                      self.params, self.cfo_correct)
                 hs = _Fetch(full).numpy().reshape(self.channels, _HDR_ROWS,
                                                   cap)
             self.stats.time_headers_s += time.perf_counter() - t0

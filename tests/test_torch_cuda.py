@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA Viterbi, the capture receive and the
-streaming chain.
+"""The port on the card: the CUDA Viterbi (its ablation variants
+included), the capture receive, the streaming chain with and without CFO
+correction, and the BER harness.
 
 These need an NVIDIA GPU with the CUDA toolkit and skip elsewhere. They
 import no jax (a GPU machine need not have it), so run them without the
@@ -17,8 +18,8 @@ import torch
 
 from fun_ofdm_tpu_torch.config import ChainParams
 from fun_ofdm_tpu_torch.models import frontend, tx
-from fun_ofdm_tpu_torch.ops import (convcode, viterbi, viterbi_blocked,
-                                    viterbi_cuda)
+from fun_ofdm_tpu_torch.ops import (convcode, viterbi, viterbi_ab,
+                                    viterbi_blocked, viterbi_cuda)
 from fun_ofdm_tpu_torch.rates import Rate
 from fun_ofdm_tpu_torch.runtime import chain
 
@@ -84,7 +85,8 @@ def test_capture_on_card_matches_cpu(cuda_device):
     # one header and one payload launch of the exact pair, no blocked one
     assert {k: viterbi_cuda.launches[k] - before[k] for k in before} == {
         "viterbi_acs": 2, "viterbi_chainback": 2,
-        "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0}
+        "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0,
+        "viterbi_acs_ablate": 0}
     for key in ("starts", "valid", "crc_ok", "header_ok"):
         assert torch.equal(got[key].cpu(), want[key]), key
     valid = want["valid"]
@@ -146,3 +148,71 @@ def test_dense_chain_on_card_matches_cpu(cuda_device):
     assert got == want and len(got) == 6
     assert viterbi_cuda.launches["viterbi_acs_windowed"] > before
     assert c.stats.crc_ok == 6
+
+
+@pytest.mark.parametrize("mode", viterbi_ab.MODES)
+def test_ablation_kernel_matches_plain(cuda_device, mode):
+    """Every ablation variant: final metrics and decision words equal the
+    plain version's, mixed lengths and both inits; "full" also equals
+    the production ACS kernel's words."""
+    rng = np.random.default_rng(11)
+    soft = _noisy_soft(rng, 24, 700).to(cuda_device)
+    steps = torch.from_numpy(rng.integers(0, 707, 24) // 2 * 2).to(
+        cuda_device, torch.int32)
+    init = torch.from_numpy(rng.integers(0, 2, 24)).to(cuda_device,
+                                                       torch.int32)
+    before = viterbi_cuda.launches["viterbi_acs_ablate"]
+    final, dec = viterbi_cuda.acs_ablate(soft, steps, init, mode)
+    assert viterbi_cuda.launches["viterbi_acs_ablate"] == before + 1
+    want_final, want_dec = viterbi_ab.acs_ablate_plain(soft, steps, init,
+                                                       mode)
+    assert torch.equal(final.cpu(), want_final.cpu())
+    assert (dec is None) == (want_dec is None) == (mode == "nostore")
+    if dec is not None:
+        assert torch.equal(dec.cpu(), want_dec.cpu())
+    if mode == "full":
+        assert torch.equal(dec, viterbi_cuda.acs(soft, steps, init))
+
+
+def test_cfo_chain_on_card_matches_cpu(cuda_device):
+    """A stream rotated by 8e-3 cycles/sample through the CFO chain
+    (lts_segments=4, cfo_correct=True): the card delivers what the CPU
+    delivers, both frames."""
+    rate, length = Rate.RATE_3_4_QAM16, 80
+    rng = np.random.default_rng(17)
+    payload = torch.from_numpy(rng.integers(0, 256, (1, length),
+                                            dtype=np.uint8))
+    fre, fim = (f.numpy()[0] for f in tx.build_frame_p(payload, rate))
+    n = 16384
+    base = np.zeros(n, np.complex64)
+    for p in (600, 9000):
+        base[p:p + fre.size] = fre + 1j * fim
+    sigma = np.sqrt(np.mean(fre ** 2 + fim ** 2) / (2 * 10 ** 2.4))
+    rot = base * np.exp(2j * np.pi * 8e-3 * np.arange(n))
+    rot = (rot + sigma * (rng.normal(size=n) + 1j * rng.normal(size=n))
+           ).astype(np.complex64)
+
+    def run(device):
+        c = chain.ReceiverChain(rates=(rate,), max_length=length,
+                                params=ChainParams(lts_segments=4),
+                                cfo_correct=True, device=device)
+        return [(p.payload, p.start) for p in
+                c.process_samples(rot) + c.flush()]
+
+    want = run("cpu")
+    assert run(cuda_device) == want and [s for _, s in want] == [600, 9000]
+
+
+def test_error_rates_on_card(cuda_device):
+    """The BER harness runs on the card through the kernels: no errors at
+    30 dB, all frames lost at -5 dB, in both modes."""
+    from fun_ofdm_tpu_torch.sim import ber
+
+    before = viterbi_cuda.launches["viterbi_acs"]
+    r = ber.error_rates(Rate.RATE_1_2_QPSK, 100, (-5.0, 30.0), n_frames=32,
+                        device=cuda_device)
+    assert list(r.per) == [1.0, 0.0] and r.ber[1] == 0.0
+    d = ber.error_rates(Rate.RATE_1_2_QPSK, 100, (-5.0, 30.0), n_frames=16,
+                        batch=16, detect=True, device=cuda_device)
+    assert d.per[0] > 0.9 and d.per[1] == 0.0
+    assert viterbi_cuda.launches["viterbi_acs"] > before

@@ -341,10 +341,13 @@ def test_decode_frames_dynamic_matches_jax():
                                     start=int(starts[2]))
     np.testing.assert_array_equal(_np(one["payload"]),
                                   _np(got["payload"])[2])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        rx.decode_frame_dynamic_p((torch.from_numpy(re),
-                                   torch.from_numpy(im)), rate, MAX_LENGTH,
-                                  cfo_correct=True)
+    # CFO correction (tests/test_torch_cfo.py) leaves a clean frame as is
+    fixed = rx.decode_frame_dynamic_p((torch.from_numpy(re),
+                                       torch.from_numpy(im)), rate,
+                                      MAX_LENGTH, start=int(starts[2]),
+                                      cfo_correct=True)
+    assert bool(fixed["crc_ok"]) == bool(one["crc_ok"])
+    np.testing.assert_array_equal(_np(fixed["payload"]), _np(one["payload"]))
 
 
 def test_decode_frames_anyrate_matches_jax():
