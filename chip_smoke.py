@@ -9,15 +9,23 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      the compiler's register report;
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs, bit-exact (tolerance 0): the dense capture's shape
-     (512 frames x 12,090 bits), an 18-bit header batch, all-erasure and
-     hard 0/255 inputs, mixed per-frame lengths and uniform init; with
-     both times (CUDA events);
+     (512 frames x 12,090 bits) and its first 256 and 128 frames (timed
+     too), an 18-bit header batch (less than one chainback segment), 37
+     frames of mixed lengths up to 513 bits (a batch that is not a
+     multiple of the chainback's frame group, a 1-step last segment),
+     all-erasure and hard 0/255 inputs, mixed per-frame lengths and
+     uniform init; the decisions also against the kernel's own algebra in
+     plain form (viterbi.acs_early_plain) and the bits against the
+     segmented chainback's (viterbi.chainback_segmented_plain); with both
+     times (CUDA events);
   4. the main path at bench_capture's geometry: build_frame_p for 16
      channels, each 32 back-to-back 1500-byte RATE_3_4_QAM16 frames and
      a 2048-sample zero tail (3,678,208 samples), then receive_capture_p
      on the card; asserts 512/512 crc_ok with the seeded payloads, that
      each kernel was launched, and times the receive (host wall clock
-     to torch.cuda.synchronize(), mean of 10 calls after 3 warm-ups);
+     to torch.cuda.synchronize(), mean of 10 calls after 3 warm-ups),
+     then a torch.profiler pass over 3 calls (the card's busy share, the
+     busiest items, the Viterbi kernels' device time);
   5. the block-overlap kernels (windowed ACS, chainback, splice + merge
      guard) against their plain versions on the card, bit-exact (bits and
      merge flags, tolerance 0): 64 and 4 frames x 12,090 bits of noisy
@@ -202,9 +210,20 @@ def kernel_case(name, soft_np, nbits, nbits_dynamic=None, init=1,
     torch.cuda.synchronize()
     cb_plain_ms = (time.perf_counter() - t0) * 1e3
     cb_err = int((bits - bits_plain).abs().max()) if nbits else 0
+    # the kernels' own algebra, in plain form: the early-minimum ACS with
+    # the deferred renormalisation, and the segmented chainback
+    early_err = int((dec_kernel.int()
+                     - viterbi.acs_early_plain(soft, steps, init_t).int())
+                    .abs().max())
+    seg = viterbi_cuda.build().viterbi_chainback_segment()
+    seg_err = int((bits - viterbi.chainback_segmented_plain(dec_kernel, nbits,
+                                                            seg))
+                  .abs().max()) if nbits else 0
+    acs_err, cb_err = max(acs_err, early_err), max(cb_err, seg_err)
     rec = {"case": name, "batch": bsz, "nbits": nbits,
            "acs_max_abs_err": acs_err, "chainback_max_abs_err": cb_err,
-           "acs_plain_ms": acs_plain_ms, "chainback_plain_ms": cb_plain_ms}
+           "acs_plain_ms": acs_plain_ms, "chainback_plain_ms": cb_plain_ms,
+           "chainback_segments": -(-nbits // seg)}
     if timed:
         rec["acs_ms"] = cuda_ms(lambda: viterbi_cuda.acs(soft, steps, init_t),
                                 reps=5)
@@ -228,10 +247,19 @@ def kernel_phase() -> list:
     frames = CHANNELS * FRAMES_PER_CHANNEL      # 512
     rng = np.random.default_rng(SEED)
     hard = noisy_soft(rng, 64, 1000, 0)
+    capture = noisy_soft(rng, frames, nbits, 100)
     return [
-        kernel_case("capture", noisy_soft(rng, frames, nbits, 100), nbits,
-                    timed=True),
+        kernel_case("capture", capture, nbits, timed=True),
+        # the dense chain's 256-frame bucket, and 128 frames (the words of
+        # 512 frames fill the 50 MB L2; of 128, a quarter of it)
+        kernel_case("frames256", capture[:256], nbits, timed=True),
+        kernel_case("frames128", capture[:128], nbits, timed=True),
         kernel_case("header", noisy_soft(rng, frames, 18, 100), 18),
+        # a batch that is not a multiple of the chainback's frame group,
+        # and a last segment of one step
+        kernel_case("ragged", noisy_soft(rng, 37, 513, 100), 513,
+                    nbits_dynamic=torch.from_numpy(
+                        rng.integers(0, 514, size=37))),
         kernel_case("erasure", np.full((64, 2 * (1000 + 6)), 127, np.int32),
                     1000),
         kernel_case("hard", hard, 1000),
@@ -301,12 +329,18 @@ def slice_phase() -> tuple[dict, dict]:
         receive(streams)
     torch.cuda.synchronize()
     wall_s = (time.perf_counter() - t0) / reps
+
+    def three_calls():
+        for _ in range(3):
+            receive(streams)
+    prof = profile_device(three_calls)
     rec = {"samples": n_samples, "frames": expected,
            "crc_ok": int(crc_ok.sum()), "launches": launches,
            "receive_wall_ms": wall_s * 1e3,
            "receive_samples_per_s": n_samples / wall_s,
            "tx_build_ms": tx_ms,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "profile_three_calls": prof}
     print("slice:", json.dumps(rec), flush=True)
     return rec, launches
 
@@ -491,30 +525,49 @@ def launches_of(fn):
     return out, dict(viterbi_cuda.launches)
 
 
-def profile_feed(chain, pieces) -> dict:
-    """torch.profiler over feeding `pieces` into a chain already in
-    steady state: host wall ms, device busy ms (the sum of the device time
-    of every kernel and copy, which run one at a time on the one stream)
-    and the busiest kernels. The profiler's own overhead lengthens the
-    wall time."""
+def profile_device(fn) -> dict:
+    """torch.profiler over fn(): host wall ms; device busy ms, the sum of
+    the device time of every kernel, copy and memset (they run one at a
+    time on the one stream; the operators' rows, which repeat their
+    kernels' time, are left out of the sum); the busiest device items and
+    the busiest operators (device ms, calls); and the Viterbi kernels'
+    device ms and launches by kernel. The profiler's own overhead
+    lengthens the wall time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        for p in pieces:
-            chain.process_samples(p)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    busy_ms = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
+    device, ops = [], []
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            row = (e.key, e.self_device_time_total / 1e3, e.count)
+            (ops if e.device_type == DeviceType.CPU else device).append(row)
+    busy_ms = sum(r[1] for r in device)
+    device.sort(key=lambda r: -r[1])
+    ops.sort(key=lambda r: -r[1])
+    viterbi = {re.match(r"\(anonymous namespace\)::(\w+)", k).group(1):
+               [ms, n] for k, ms, n in device
+               if k.startswith("(anonymous namespace)::")}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
-            "top": [[k[:60], ms, n] for k, ms, n in rows[:8]]}
+            "top_device": [[k[:60], ms, n] for k, ms, n in device[:12]],
+            "top_ops": [[k[:60], ms, n] for k, ms, n in ops[:12]],
+            "viterbi_kernels_ms": viterbi}
+
+
+def profile_feed(chain, pieces) -> dict:
+    """profile_device over feeding `pieces` into a chain already in
+    steady state."""
+    def feed():
+        for p in pieces:
+            chain.process_samples(p)
+    return profile_device(feed)
 
 
 def dense_stream_phase() -> dict:

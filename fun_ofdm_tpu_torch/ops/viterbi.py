@@ -77,6 +77,39 @@ def _acs_step(metrics: torch.Tensor, t: torch.Tensor):
     return new, dec.reshape(metrics.shape).to(torch.int32)
 
 
+def _acs_step_early(metrics: torch.Tensor, off: torch.Tensor,
+                    t: torch.Tensor):
+    """_acs_step as the CUDA ACS kernel computes it, on metrics in offset
+    form: (..., 64) metrics + off, off (..., 1) the renormalisations not
+    yet subtracted. Returns (new metrics + new off, new off, decisions).
+
+    The renormalisation's minimum and trigger come from the old metrics:
+    every new metric is the smaller of two saturated candidates and each
+    old state x feeds two, so min over the new metrics = min(min over x of
+    m_x + min(t_j, 63 - t_j), 255), j = x mod 32 its butterfly; new state
+    0 is min(m_0 + t_0, m_32 + 63 - t_0), saturated (which cannot change
+    its comparison with 210). The subtraction is deferred: the offset
+    rises to the new minimum, the saturation is at 255 + off, and the
+    decisions, comparisons of two metrics, do not see the offset. Holds
+    the same decisions as _acs_step, and metrics - off equal to its.
+    """
+    lo, hi = metrics[..., :32], metrics[..., 32:]
+    cap = 255 + off
+    low = torch.minimum((torch.minimum(lo, hi) + torch.minimum(t, 63 - t))
+                        .amin(-1, keepdim=True), cap)
+    need = torch.minimum(lo[..., :1] + t[..., :1],
+                         hi[..., :1] + 63 - t[..., :1]) - off > 210
+    c_lo_even = torch.minimum(lo + t, cap)
+    c_hi_even = torch.minimum(hi + 63 - t, cap)
+    c_lo_odd = torch.minimum(lo + 63 - t, cap)
+    c_hi_odd = torch.minimum(hi + t, cap)
+    new = torch.stack([torch.minimum(c_lo_even, c_hi_even),
+                       torch.minimum(c_lo_odd, c_hi_odd)], dim=-1)
+    dec = torch.stack([c_hi_even <= c_lo_even, c_hi_odd <= c_lo_odd], dim=-1)
+    return (new.reshape(metrics.shape), torch.where(need, low, off),
+            dec.reshape(metrics.shape).to(torch.int32))
+
+
 def step_counts(nbits: int, nbits_dynamic, batch_shape, device):
     """Per-frame even trellis step counts, (*batch_shape,) int32."""
     steps = ((nbits + K - 1) // 2) * 2
@@ -113,6 +146,29 @@ def acs_plain(soft: torch.Tensor, steps: torch.Tensor,
     return dec
 
 
+def acs_early_plain(soft: torch.Tensor, steps: torch.Tensor,
+                    init: torch.Tensor) -> torch.Tensor:
+    """acs_plain through _acs_step_early, the CUDA ACS kernel's algebra;
+    same arguments and result."""
+    bsz, total = soft.shape[0], soft.shape[-1] // 2
+    smax = int(steps.max()) if bsz else 0
+    pairs = soft[:, : 2 * smax].to(torch.int32).reshape(bsz, smax, 2)
+    t_all = _branch_metrics(pairs[..., 0].T, pairs[..., 1].T)  # (S, B, 32)
+    metrics = torch.full((bsz, NUMSTATES), 63, dtype=torch.int32,
+                         device=soft.device)
+    metrics[:, 0] = torch.where(init == 1, 0, 63)
+    off = torch.zeros((bsz, 1), dtype=torch.int32, device=soft.device)
+    dec = torch.zeros((total, bsz, NUMSTATES), dtype=torch.uint8,
+                      device=soft.device)
+    for i in range(smax):
+        new, new_off, d = _acs_step_early(metrics, off, t_all[i])
+        live = (i < steps)[:, None]
+        metrics = torch.where(live, new, metrics)
+        off = torch.where(live, new_off, off)
+        dec[i] = (d * live).to(torch.uint8)
+    return dec
+
+
 def chainback_plain(dec: torch.Tensor, nbits: int) -> torch.Tensor:
     """Survivor chainback, the plain version of the CUDA chainback kernel.
 
@@ -127,6 +183,45 @@ def chainback_plain(dec: torch.Tensor, nbits: int) -> torch.Tensor:
         out[t] = bit[:, 0]
         state = (state >> 1) | (bit << 5)
     return out[K - 1: K - 1 + nbits].T.contiguous()
+
+
+def chainback_segmented_plain(dec: torch.Tensor, nbits: int,
+                              seg: int) -> torch.Tensor:
+    """chainback_plain as the CUDA chainback computes it, in segments.
+
+    dec: (T, B, 64) decisions with T = nbits + 6; seg >= 1 steps a
+    segment. The walk over steps T-1 .. 6 is cut into segments
+    [6 + k seg, min(6 + (k+1) seg, T)); every segment but the oldest gets
+    its map F_k (the state at its first step - 1 from each of the 64
+    states at its last step), the maps composed newest first from state 0
+    give each segment's start state, and each segment walks once more from
+    it, writing its bits. Same result as chainback_plain.
+    """
+    total, bsz = dec.shape[0], dec.shape[1]
+    n_seg = -(-nbits // seg)
+    out = torch.zeros((bsz, nbits), dtype=torch.int32, device=dec.device)
+    bounds = [(K - 1 + k * seg, min(K - 1 + (k + 1) * seg, total))
+              for k in range(n_seg)]
+
+    def walk(state, lo, hi, bits=None):
+        for t in range(hi - 1, lo - 1, -1):
+            bit = dec[t].gather(1, state).to(torch.int64)
+            if bits is not None:
+                bits[:, t - (K - 1)] = bit[:, 0]
+            state = (state >> 1) | (bit << 5)
+        return state
+
+    all_states = torch.arange(NUMSTATES, device=dec.device).expand(bsz, -1)
+    maps = [None] + [walk(all_states, lo, hi) for lo, hi in bounds[1:]]
+    starts = [None] * n_seg
+    state = torch.zeros((bsz, 1), dtype=torch.int64, device=dec.device)
+    for k in range(n_seg - 1, -1, -1):
+        starts[k] = state
+        if k:
+            state = maps[k].gather(1, state)
+    for k, (lo, hi) in enumerate(bounds):
+        walk(starts[k], lo, hi, out)
+    return out
 
 
 def decode_plain(soft: torch.Tensor, steps: torch.Tensor,

@@ -9,10 +9,29 @@ compiled with nvcc for sm_90a into a shared library with a plain C
 interface, at first use, into csrc/build/ (keyed by a hash of the source
 and flags); importing this module builds nothing. Each wrapper checks its
 tensors, launches on the current CUDA stream, raises when the launch
-fails, and counts its launches in `launches`.
+fails, and counts its calls in `launches` (one per call, also where a
+call is several kernel launches, as chainback's three).
 
-The plain versions are ops/viterbi.acs_plain and ops/viterbi.chainback_plain,
-for the block-overlap pair ops/viterbi_blocked.acs_windowed_plain and
+What bounds them on the H100, and what the design does (the note at the
+top of csrc/viterbi.cu has the detail):
+  * acs: the serial steps of one warp per frame (~12k a 1500-byte frame),
+    each its dependency chain and its instructions dispatched in order; the
+    renormalisation's minimum and trigger are taken from the old metrics
+    and its subtraction deferred into a uniform offset, the step's branch
+    metrics come packed in one shuffle, the decisions are stored once per
+    32 steps, and the 32-step loop is unrolled, leaving a shuffle, an
+    add-min and a min on the chain;
+  * chainback: a per-frame traceback is a chain of device-memory round
+    trips; it runs as segment maps (all 64 start states of a 256-step
+    segment, words staged in shared memory), their composition from
+    state 0, and a walk of every segment from its start state, in
+    parallel over (segment, 16-frame group); exact, with no assumption
+    that the survivor paths merge.
+
+The plain versions are ops/viterbi.acs_plain and ops/viterbi.chainback_plain
+(the kernels' own algebra: ops/viterbi.acs_early_plain and
+ops/viterbi.chainback_segmented_plain, used by the tests), for the
+block-overlap pair ops/viterbi_blocked.acs_windowed_plain and
 ops/viterbi_blocked.splice_guard_plain, and for the ablation variants
 ops/viterbi_ab.acs_ablate_plain.
 """
@@ -91,8 +110,10 @@ def build() -> ctypes.CDLL:
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     lib.viterbi_acs.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
     lib.viterbi_acs.restype = cint
-    lib.viterbi_chainback.argtypes = [ptr, ptr, cint, cint, ptr]
+    lib.viterbi_chainback.argtypes = [ptr, ptr, ptr, ptr, cint, cint, ptr]
     lib.viterbi_chainback.restype = cint
+    lib.viterbi_chainback_segment.argtypes = []
+    lib.viterbi_chainback_segment.restype = cint
     lib.viterbi_acs_windowed.argtypes = [ptr, ptr, ptr, cint, cint, cint,
                                          cint, cint, cint, ptr]
     lib.viterbi_acs_windowed.restype = cint
@@ -167,8 +188,11 @@ def chainback(dec: torch.Tensor, nbits: int) -> torch.Tensor:
     """Survivor chainback on the card.
 
     dec: (nbits + 6, B) int64 decision words from acs. Returns the
-    (B, nbits) int32 decoded bits (a transposed view of the kernel's
-    (nbits, B) output).
+    (B, nbits) int32 decoded bits (a transposed view of the kernels'
+    (nbits, B) output). One call is one launch for a trellis of at most
+    one segment (csrc/viterbi.cu, kSeg steps) and three otherwise (the
+    segment maps, their composition, the walk), with scratch of
+    n_seg x B x 68 bytes; it counts as one launch of viterbi_chainback.
     """
     if dec.dim() != 2 or dec.shape[0] != nbits + K - 1:
         raise ValueError(f"dec must be ({nbits + K - 1}, B), got "
@@ -176,12 +200,22 @@ def chainback(dec: torch.Tensor, nbits: int) -> torch.Tensor:
     bsz = dec.shape[1]
     _check(dec, "dec", torch.int64, (nbits + K - 1, bsz))
     out = torch.empty((nbits, bsz), dtype=torch.int32, device=dec.device)
-    if bsz == 0:
+    if bsz == 0 or nbits == 0:
         return out.T
     lib = build()
+    n_seg = -(-nbits // lib.viterbi_chainback_segment())
+    maps = starts = None
+    if n_seg > 1:
+        maps = torch.empty((n_seg, bsz, 64), dtype=torch.uint8,
+                           device=dec.device)
+        starts = torch.empty((n_seg, bsz), dtype=torch.int32,
+                             device=dec.device)
     with torch.cuda.device(dec.device):
-        err = lib.viterbi_chainback(dec.data_ptr(), out.data_ptr(), bsz,
-                                    nbits + K - 1, _stream(dec.device))
+        err = lib.viterbi_chainback(
+            dec.data_ptr(), out.data_ptr(),
+            None if maps is None else maps.data_ptr(),
+            None if starts is None else starts.data_ptr(), bsz,
+            nbits + K - 1, _stream(dec.device))
     launches["viterbi_chainback"] += 1
     if err:
         raise RuntimeError(f"viterbi_chainback launch failed: CUDA error {err}")

@@ -58,6 +58,51 @@ def test_kernel_matches_twin(cuda_device, nbits, init):
     assert torch.equal(bits.cpu(), viterbi.chainback_plain(dec, nbits).cpu())
 
 
+@pytest.mark.parametrize("kind", ["erasure", "hard", "uniform_init"])
+def test_acs_extremes_match_plain(cuda_device, kind):
+    """All-127 and hard 0/255 inputs (saturation, frequent
+    renormalisation) and the uniform init, 37 frames of mixed lengths:
+    decision words equal the plain version's."""
+    rng = np.random.default_rng(23)
+    soft = _noisy_soft(rng, 37, 600)
+    if kind == "erasure":
+        soft = torch.full_like(soft, 127)
+    elif kind == "hard":
+        soft = torch.where(soft >= 128, 255, 0).to(torch.int32)
+    soft = soft.to(cuda_device)
+    nbd = torch.from_numpy(rng.integers(0, 601, 37)).to(cuda_device)
+    steps = viterbi.step_counts(600, nbd, (37,), cuda_device)
+    init = torch.full((37,), 0 if kind == "uniform_init" else 1,
+                      dtype=torch.int32, device=cuda_device)
+    words = viterbi_cuda.acs(soft, steps, init)
+    unpacked = (words[..., None] >> torch.arange(64, device=cuda_device)) & 1
+    assert torch.equal(unpacked.to(torch.uint8).cpu(),
+                       viterbi.acs_plain(soft, steps, init).cpu())
+
+
+@pytest.mark.parametrize("batch,nbits", [(37, 18), (19, 250), (19, 256),
+                                         (19, 257), (33, 1000), (16, 515)])
+def test_chainback_segments_match_plain(cuda_device, batch, nbits):
+    """The segmented chainback on random decision words: below one
+    segment (the 18-bit header), exactly one, one plus a 1-step segment,
+    a batch that is not a multiple of the frame group, and dead steps
+    (zero words past each frame's count)."""
+    rng = np.random.default_rng(batch * 1000 + nbits)
+    total = nbits + 6
+    words = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (total, batch),
+                                          dtype=np.int64))
+    live = torch.from_numpy(rng.integers(0, total + 1, batch))
+    words[torch.arange(total)[:, None] >= live[None, :]] = 0
+    words = words.to(cuda_device)
+    before = viterbi_cuda.launches["viterbi_chainback"]
+    bits = viterbi_cuda.chainback(words, nbits)
+    assert viterbi_cuda.launches["viterbi_chainback"] == before + 1
+    dec = (words[..., None] >> torch.arange(64, device=cuda_device)) & 1
+    assert torch.equal(bits.cpu(),
+                       viterbi.chainback_plain(dec.to(torch.uint8), nbits)
+                       .cpu())
+
+
 def test_capture_on_card_matches_cpu(cuda_device):
     """A noisy 2-channel capture (past the blocked extractor's threshold)
     decodes the same on the card, through the kernels, as on the CPU."""
