@@ -96,14 +96,34 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      frames of 1500 bytes from a second process at the 5 MS/s radio clock:
      the frames delivered and the samples counted lost are printed as
      they are (frames may be lost; only a failed process or a missing
-     or impossible count fails the case).
-The phases run in the order 1-10, 13, 11, 12. Each main-path phase (4,
-6-13) sets the kernels' launch counts to 0 just before it runs and reads
-them just after. The last two lines are a JSON
-object with one entry per kernel (its time, its plain version's, and its
-bound: the larger of its bytes over the card's memory rate and its
-integer operations over the card's int32 rate) and the JSON result line
-{"ok": true, "device": {...}}.
+     or impossible count fails the case);
+ 14. the adaptive superstep ladder (ChainParams(latency_target_ms=40),
+     bench.py's lat_auto_ms, at the default 1,048,576-sample superstep):
+     phase 7's 64 lone frames at phase 7's cadence, each delivered once
+     (the block-overlap kernels launched), the median and p90 latency
+     beside phase 7's, and the dispatches per rung (counted by wrapping
+     the chain's _ingest); phase 6's dense stream (int10), the same
+     packets and counters as phase 6 but the dispatch count, Msample/s;
+     phase 9's four channels ending in flush(), phase 9's packets;
+ 15. multi-device receive on the one card (fun_ofdm_tpu_torch.parallel).
+     NCCL refuses two ranks on one card, so the multi-rank runs take gloo
+     with every rank on cuda:0, the halo and the all-gather through host
+     memory: (a) `python -m fun_ofdm_tpu_torch.parallel.dryrun --ranks 4`,
+     both passes; (b) phase 4's capture on a 2 (channel) x 2 (time) mesh
+     of 4 ranks (this script with --shard-worker, one process a rank),
+     the time cut through frame 16 of every channel, every rank's
+     delivered (channel, global start, payload) set equal to the
+     single-process receive_capture_p on the card, each rank's wall ms
+     per call (after a warm-up, CUDA-synchronised; the 4 ranks share the
+     card) beside phase 4's; (c) the same capture on a one-rank NCCL
+     group (mesh 1 x 1), the all-gather on the card.
+The phases run in the order 1-9, 14, 15, 10, 13, 11, 12. Each main-path
+phase (4, 6-15) sets the kernels' launch counts to 0 just before it runs
+and reads them just after; phase 15 adds the counts its ranks report.
+The last two lines are a JSON object with one entry per kernel (its
+time, its plain version's, and its bound: the larger of its bytes over
+the card's memory rate and its integer operations over the card's int32
+rate) and the JSON result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -334,23 +354,18 @@ def kernel_phase() -> list:
 
 def slice_phase() -> tuple[dict, dict]:
     """bench_capture's geometry through the port on the card."""
-    from fun_ofdm_tpu_torch.models import frontend, tx
+    from fun_ofdm_tpu_torch.models import frontend
     from fun_ofdm_tpu_torch.ops import viterbi_cuda
     from fun_ofdm_tpu_torch.rates import Rate, params_for
 
     dev = torch.device("cuda")
     rate = Rate[RATE_NAME]
     frame_len = params_for(rate).frame_samples(LENGTH)      # 7120
-    payloads = np.random.default_rng(SEED).integers(
-        0, 256, size=(CHANNELS, LENGTH), dtype=np.uint8)
 
     def capture_streams():
-        frames = tx.build_frame_p(torch.from_numpy(payloads).to(dev), rate)
-        return tuple(torch.cat(
-            [f[:, None, :].expand(-1, FRAMES_PER_CHANNEL, -1).reshape(
-                CHANNELS, -1),
-             torch.zeros((CHANNELS, TAIL), dtype=f.dtype, device=dev)], dim=1)
-            for f in frames)
+        return bench_capture_streams(dev)[0]
+
+    payloads = bench_capture_streams(dev)[1]
 
     def receive(streams):
         return frontend.receive_capture_p(streams, rate, LENGTH,
@@ -639,11 +654,10 @@ def profile_feed(chain, pieces) -> dict:
     return profile_device(feed)
 
 
-def dense_stream_phase() -> dict:
-    """bench.py's reference-parity streaming configuration."""
-    from fun_ofdm_tpu_torch.config import ChainParams
+def dense_stream():
+    """Phase 6's stream: phase 4's channel-0 unit tiled 36 times, as
+    4096-sample float32 pieces; returns (s_re, s_im, pieces, planted)."""
     from fun_ofdm_tpu_torch.rates import Rate, params_for
-    from fun_ofdm_tpu_torch.runtime.chain import ReceiverChain, pack10
 
     rate = Rate[RATE_NAME]
     frame_len = params_for(rate).frame_samples(LENGTH)
@@ -652,11 +666,23 @@ def dense_stream_phase() -> dict:
     unit = unit_stream(payloads[0], rate, FRAMES_PER_CHANNEL, TAIL)
     tiles = 36
     s_re, s_im = (np.tile(u, tiles) for u in unit)
-    n = s_re.size
-    pieces = [(s_re[i:i + 4096], s_im[i:i + 4096]) for i in range(0, n, 4096)]
+    pieces = [(s_re[i:i + 4096], s_im[i:i + 4096])
+              for i in range(0, s_re.size, 4096)]
     planted = {(0, t * unit[0].size + k * frame_len): (payloads[0].tobytes(),
                                                        rate)
                for t in range(tiles) for k in range(FRAMES_PER_CHANNEL)}
+    return s_re, s_im, pieces, planted
+
+
+def dense_stream_phase() -> dict:
+    """bench.py's reference-parity streaming configuration."""
+    from fun_ofdm_tpu_torch.config import ChainParams
+    from fun_ofdm_tpu_torch.rates import Rate
+    from fun_ofdm_tpu_torch.runtime.chain import ReceiverChain, pack10
+
+    rate = Rate[RATE_NAME]
+    s_re, s_im, pieces, planted = dense_stream()
+    n = s_re.size
 
     def chain():
         return ReceiverChain(rates=(rate,), max_length=LENGTH,
@@ -689,28 +715,61 @@ def dense_stream_phase() -> dict:
     return rec
 
 
-def sparse_stream_phase() -> dict:
-    """The reference cadence: 4096-sample supersteps, lone frames."""
-    from fun_ofdm_tpu_torch.config import ChainParams
+SPARSE_FRAMES, SPARSE_GAP = 64, 20000
+
+
+def sparse_stream():
+    """Phase 7's stream: 64 lone frames, each followed by 20,000 zeros;
+    returns (s_re, s_im, planted, period)."""
     from fun_ofdm_tpu_torch.models import tx
     from fun_ofdm_tpu_torch.rates import Rate, params_for
-    from fun_ofdm_tpu_torch.runtime.chain import ReceiverChain
 
     rate = Rate[RATE_NAME]
     frame_len = params_for(rate).frame_samples(LENGTH)
-    frames, gap = 64, 20000
     payloads = np.random.default_rng(SEED + 7).integers(
-        0, 256, size=(frames, LENGTH), dtype=np.uint8)
+        0, 256, size=(SPARSE_FRAMES, LENGTH), dtype=np.uint8)
     fre, fim = (f.cpu().numpy() for f in tx.build_frame_p(
         torch.from_numpy(payloads).to(DEVICE), rate))
-    period = frame_len + gap
-    s_re = np.zeros(frames * period, np.float32)
-    s_im = np.zeros(frames * period, np.float32)
-    for k in range(frames):
+    period = frame_len + SPARSE_GAP
+    s_re = np.zeros(SPARSE_FRAMES * period, np.float32)
+    s_im = np.zeros(SPARSE_FRAMES * period, np.float32)
+    for k in range(SPARSE_FRAMES):
         s_re[k * period:k * period + frame_len] = fre[k]
         s_im[k * period:k * period + frame_len] = fim[k]
     planted = {(0, k * period): (payloads[k].tobytes(), rate)
-               for k in range(frames)}
+               for k in range(SPARSE_FRAMES)}
+    return s_re, s_im, planted, period
+
+
+def feed_at_cadence(c, s_re, s_im, period):
+    """Feed phase 7's stream to chain c in 4096-sample pieces at the
+    radio's cadence (a 0.8 ms sleep after each, 5 MS/s), then flush.
+    A frame's latency runs from the call that hands over its last sample
+    to the call that returns its packet. Returns (packets, latencies)."""
+    frame_len = period - SPARSE_GAP
+    last_piece = {k * period + frame_len - 1: k for k in range(SPARSE_FRAMES)}
+    t_last, lat_ms, pkts = {}, [], []
+    for i in range(0, s_re.size, 4096):
+        for end, k in last_piece.items():
+            if i <= end < i + 4096:
+                t_last[k] = time.perf_counter()
+        got = c.process_samples((s_re[i:i + 4096], s_im[i:i + 4096]))
+        now = time.perf_counter()
+        for p in got:
+            lat_ms.append((now - t_last[p.start // period]) * 1e3)
+        pkts += got
+        time.sleep(0.0008)
+    return pkts + c.flush(), lat_ms
+
+
+def sparse_stream_phase() -> dict:
+    """The reference cadence: 4096-sample supersteps, lone frames."""
+    from fun_ofdm_tpu_torch.config import ChainParams
+    from fun_ofdm_tpu_torch.rates import Rate
+    from fun_ofdm_tpu_torch.runtime.chain import ReceiverChain
+
+    rate = Rate[RATE_NAME]
+    s_re, s_im, planted, period = sparse_stream()
 
     def chain():
         return ReceiverChain(rates=(rate,), max_length=LENGTH,
@@ -726,35 +785,16 @@ def sparse_stream_phase() -> dict:
     prof = profile_feed(warm, pieces[half:])
     warm.flush()
     c = chain()
-    # pieces at the radio's 4096-sample cadence (0.8 ms at 5 MS/s); a
-    # frame's latency runs from the call that hands over its last sample
-    # to the call that returns its packet
-    last_piece = {k * period + frame_len - 1: k for k in range(frames)}
-    t_last, lat_ms = {}, []
-
-    def feed():
-        pkts = []
-        for i in range(0, s_re.size, 4096):
-            for end, k in last_piece.items():
-                if i <= end < i + 4096:
-                    t_last[k] = time.perf_counter()
-            got = c.process_samples((s_re[i:i + 4096], s_im[i:i + 4096]))
-            now = time.perf_counter()
-            for p in got:
-                lat_ms.append((now - t_last[p.start // period]) * 1e3)
-            pkts += got
-            time.sleep(0.0008)
-        return pkts + c.flush()
-
     t0 = time.perf_counter()
-    pkts, launches = launches_of(feed)
+    (pkts, lat_ms), launches = launches_of(
+        lambda: feed_at_cadence(c, s_re, s_im, period))
     wall_s = time.perf_counter() - t0
     check_packets(pkts, planted, "sparse stream")
     for name in ("viterbi_acs_windowed", "viterbi_splice_guard"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the sparse "
                                  f"stream")
-    rec = {"frames": frames, "delivered": len(pkts), "step": c.step,
+    rec = {"frames": SPARSE_FRAMES, "delivered": len(pkts), "step": c.step,
            "latency_ms_median": float(np.median(lat_ms)),
            "latency_ms_p90": float(np.percentile(lat_ms, 90)),
            "latencies_measured": len(lat_ms),
@@ -825,8 +865,9 @@ def all_rates_phase(strategy: str = "select") -> dict:
     return rec
 
 
-def multichannel_phase() -> dict:
-    """bench.py's bench_multichannel at C=4, ~1 M samples per channel."""
+def multichannel_stream(latency_target_ms=None):
+    """Phase 9's 4-channel chain and stream: (chain, s_re, pieces,
+    planted); the chain adaptive when latency_target_ms is set."""
     from fun_ofdm_tpu_torch.config import ChainParams
     from fun_ofdm_tpu_torch.rates import Rate, params_for
     from fun_ofdm_tpu_torch.runtime.chain import ReceiverChain, pack10
@@ -843,7 +884,8 @@ def multichannel_phase() -> dict:
     s_im = np.stack([np.tile(u[1], tiles) for u in units])
     c = ReceiverChain(rates=(rate,), max_length=LENGTH,
                       params=ChainParams(strides_per_step=256,
-                                         min_frame_samples=4000),
+                                         min_frame_samples=4000,
+                                         latency_target_ms=latency_target_ms),
                       channels=channels, ingest_dtype="int10", device=DEVICE)
     n_whole = s_re.shape[-1] // c.step * c.step
     # whole supersteps as packed wire words, the rest as float32
@@ -852,6 +894,13 @@ def multichannel_phase() -> dict:
     planted = {(ch, t * unit + k * frame_len): (payloads[ch].tobytes(), rate)
                for ch in range(channels) for t in range(tiles)
                for k in range(per_unit)}
+    return c, s_re, pieces, planted
+
+
+def multichannel_phase() -> dict:
+    """bench.py's bench_multichannel at C=4, ~1 M samples per channel."""
+    c, s_re, pieces, planted = multichannel_stream()
+    channels = s_re.shape[0]
     t0 = time.perf_counter()
     pkts, launches = launches_of(lambda: run_chain(c, pieces))
     wall_s = time.perf_counter() - t0
@@ -861,6 +910,293 @@ def multichannel_phase() -> dict:
            "wall_s_first_pass": wall_s, "stats": c.stats.as_dict(),
            "launches": launches}
     print("stream 4 channels:", json.dumps(rec), flush=True)
+    return rec
+
+
+#: bench.py's lat_auto_ms row: the adaptive ladder's latency target
+LATENCY_TARGET_MS = 40.0
+
+
+def _counting_rungs(c) -> dict:
+    """Wrap adaptive chain c's _ingest to count its dispatches by size in
+    strides (the ladder's rungs; every dispatch comes from the pending
+    float32 buffer); returns the live {rung: count} dict."""
+    rungs = {}
+    ingest = c._ingest
+
+    def counted(c_re, c_im):
+        rung = c_re.shape[-1] // c.stride
+        rungs[rung] = rungs.get(rung, 0) + 1
+        ingest(c_re, c_im)
+
+    c._ingest = counted
+    return rungs
+
+
+def _counters(stats: dict) -> dict:
+    """A chain's counters but its dispatch count and its wait times (the
+    ladder's dispatches follow the host clock)."""
+    return {k: v for k, v in stats.items()
+            if k != "windows" and not k.startswith("time_")}
+
+
+def adaptive_phase(dense: dict, sparse: dict, multichannel: dict) -> dict:
+    """Phase 14: the adaptive ladder (ChainParams.latency_target_ms=40,
+    bench.py's lat_auto_ms) at the GPU's default 1,048,576-sample
+    superstep, on phase 7's sparse stream at the radio's cadence, phase
+    6's dense stream and phase 9's four channels; the records of phases
+    6, 7 and 9 from this run are printed beside it."""
+    from fun_ofdm_tpu_torch.config import ChainParams
+    from fun_ofdm_tpu_torch.rates import Rate
+    from fun_ofdm_tpu_torch.runtime.chain import ReceiverChain
+
+    rate = Rate[RATE_NAME]
+    params = ChainParams(latency_target_ms=LATENCY_TARGET_MS)
+
+    def chain(**kw):
+        return ReceiverChain(rates=(rate,), max_length=LENGTH, params=params,
+                             device=DEVICE, **kw)
+
+    rec = {"latency_target_ms": LATENCY_TARGET_MS}
+    # the sparse stream, after a warm-up over its first two periods
+    s_re, s_im, planted, period = sparse_stream()
+    feed_at_cadence(chain(), s_re[:2 * period], s_im[:2 * period], period)
+    c = chain()
+    rungs = _counting_rungs(c)
+    t0 = time.perf_counter()
+    (pkts, lat_ms), launches = launches_of(
+        lambda: feed_at_cadence(c, s_re, s_im, period))
+    wall_s = time.perf_counter() - t0
+    check_packets(pkts, planted, "adaptive sparse stream")
+    for name in ("viterbi_acs_windowed", "viterbi_splice_guard"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the adaptive "
+                                 f"sparse stream")
+    rec["sparse"] = {
+        "frames": SPARSE_FRAMES, "delivered": len(pkts), "step": c.step,
+        "ladder": c._ladder, "dispatches_per_rung": rungs,
+        "latency_ms_median": float(np.median(lat_ms)),
+        "latency_ms_p90": float(np.percentile(lat_ms, 90)),
+        "latencies_measured": len(lat_ms),
+        "phase7_k1_latency_ms_median": sparse["latency_ms_median"],
+        "phase7_k1_latency_ms_p90": sparse["latency_ms_p90"],
+        "wall_s": wall_s, "stats": c.stats.as_dict(), "launches": launches}
+    print("adaptive sparse:", json.dumps(rec["sparse"]), flush=True)
+    total = dict(launches)
+
+    # the dense stream: full supersteps while backlogged
+    s_re, s_im, pieces, planted = dense_stream()
+    c = chain(ingest_dtype="int10")
+    rungs = _counting_rungs(c)
+    t0 = time.perf_counter()
+    pkts, launches = launches_of(lambda: run_chain(c, pieces))
+    wall_s = time.perf_counter() - t0
+    check_packets(pkts, planted, "adaptive dense stream")
+    same = _counters(c.stats.as_dict()) == _counters(dense["stats"])
+    rec["dense"] = {
+        "samples": s_re.size, "frames": len(planted), "delivered": len(pkts),
+        "dispatches_per_rung": rungs, "wall_s": wall_s,
+        "samples_per_s": s_re.size / wall_s,
+        "phase6_samples_per_s": dense["samples_per_s"],
+        "same_counters_as_phase6": same,
+        "windows": [c.stats.windows, dense["stats"]["windows"]],
+        "stats": c.stats.as_dict(), "launches": launches}
+    print("adaptive dense:", json.dumps(rec["dense"]), flush=True)
+    if not same:
+        raise AssertionError(f"adaptive dense counters {c.stats} differ from "
+                             f"phase 6's {dense['stats']}")
+    total = {k: v + launches[k] for k, v in total.items()}
+
+    # four channels, ending in flush(): phase 9's packets
+    c, s_re, pieces, planted = multichannel_stream(LATENCY_TARGET_MS)
+    rungs = _counting_rungs(c)
+    pkts, launches = launches_of(lambda: run_chain(c, pieces))
+    check_packets(pkts, planted, "adaptive 4-channel stream")
+    same = _counters(c.stats.as_dict()) == _counters(multichannel["stats"])
+    rec["channels4"] = {
+        "frames": len(planted), "delivered": len(pkts),
+        "dispatches_per_rung": rungs, "same_counters_as_phase9": same,
+        "stats": c.stats.as_dict(), "launches": launches}
+    print("adaptive 4 channels:", json.dumps(rec["channels4"]), flush=True)
+    if not same:
+        raise AssertionError(f"adaptive 4-channel counters {c.stats} differ "
+                             f"from phase 9's {multichannel['stats']}")
+    rec["launches"] = {k: v + launches[k] for k, v in total.items()}
+    return rec
+
+
+#: phase 15's mesh for bench_capture's capture, (channel, time), and
+#: every rank's device (the one card)
+SHARD_MESH = (2, 2)
+RANK_DEVICE = "cuda:0"
+
+
+def bench_capture_streams(device):
+    """Phase 4's capture, (CHANNELS, FRAMES_PER_CHANNEL * frame + TAIL)
+    planar tensors on `device`, and its payloads."""
+    from fun_ofdm_tpu_torch.models import tx
+    from fun_ofdm_tpu_torch.rates import Rate
+
+    payloads = np.random.default_rng(SEED).integers(
+        0, 256, size=(CHANNELS, LENGTH), dtype=np.uint8)
+    frames = tx.build_frame_p(torch.from_numpy(payloads).to(device),
+                              Rate[RATE_NAME])
+    return tuple(torch.cat(
+        [f[:, None, :].expand(-1, FRAMES_PER_CHANNEL, -1).reshape(
+            CHANNELS, -1),
+         torch.zeros((CHANNELS, TAIL), dtype=f.dtype, device=device)], dim=1)
+        for f in frames), payloads
+
+
+def delivered_set(out: dict) -> set:
+    """{(channel, start, payload bytes)} of the CRC-valid slots."""
+    crc = out["crc_ok"].cpu().numpy()
+    starts = out["starts"].cpu().numpy()
+    payload = out["payload"].cpu().numpy()
+    return {(int(c), int(starts[c, k]), payload[c, k].tobytes())
+            for c, k in zip(*np.nonzero(crc))}
+
+
+def shard_worker(argv) -> int:
+    """One rank of phase 15 (b, c): bench_capture's capture on a mesh of
+    --world-size ranks (SHARD_MESH, or 1 x 1 for one rank), every rank on
+    cuda:0; writes its global result to --out/rank<r>.npz and prints one
+    JSON line: its wall ms per call (after a warm-up, CUDA-synchronised)
+    and the kernels' launches in its first call."""
+    import argparse
+
+    from fun_ofdm_tpu_torch.parallel import distributed, stream_shard
+    from fun_ofdm_tpu_torch.rates import Rate
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--out", "--address", "--backend"):
+        ap.add_argument(flag)
+    ap.add_argument("--rank", type=int)
+    ap.add_argument("--world-size", type=int)
+    args = ap.parse_args(argv)
+    distributed.initialize(args.address, args.world_size, args.rank,
+                           backend=args.backend)
+    try:
+        shape = SHARD_MESH if args.world_size > 1 else (1, 1)
+        mesh = distributed.global_mesh(*shape, device=RANK_DEVICE)
+        streams, _ = bench_capture_streams(mesh.device)
+        c, t = mesh.coords
+        c_loc, n_loc = distributed.local_capture_shape(
+            mesh, *streams[0].shape)
+        block = tuple(x[c * c_loc:(c + 1) * c_loc, t * n_loc:(t + 1) * n_loc]
+                      .cpu().numpy() for x in streams)
+        block = distributed.shard_host_capture(
+            mesh, *block, global_shape=tuple(streams[0].shape))
+
+        def receive():
+            return stream_shard.sharded_receive(
+                block, Rate[RATE_NAME], LENGTH, mesh, FRAMES_PER_CHANNEL)
+
+        out, launches = launches_of(receive)
+        np.savez(Path(args.out) / f"rank{args.rank}.npz",
+                 **{k: v.cpu().numpy() for k, v in out.items()})
+        for _ in range(2):
+            receive()
+        torch.cuda.synchronize(mesh.device)
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            receive()
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "rank": mesh.rank, "coords": list(mesh.coords),
+            "block": [c_loc, n_loc], "backend": args.backend,
+            "wall_ms_per_call": (time.perf_counter() - t0) * 1e3 / reps,
+            "launches": launches}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _rank_lines(results, what: str) -> list:
+    """The JSON line of each rank of dryrun.launch's results; raises if a
+    rank failed or printed none."""
+    recs = []
+    for r, (rc, out, err) in enumerate(results):
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if rc != 0 or not lines:
+            raise AssertionError(f"{what}: rank {r} returned {rc}\n"
+                                 f"{err[-3000:]}")
+        recs.append(json.loads(lines[-1]))
+    return recs
+
+
+def multi_device_phase(root: Path, slice_rec: dict) -> dict:
+    """Phase 15: multi-device receive on one card. NCCL refuses two ranks
+    on one card, so the multi-rank runs take gloo with every rank on
+    cuda:0 (the halo and the gather go through host memory): (a) the dry
+    run on 4 ranks; (b) bench_capture's capture on a 2 x 2 mesh of 4
+    ranks, with a frame of every channel across the time cut, equal to
+    the single-process receive_capture_p; (c) the same capture on a one-
+    rank NCCL group (mesh 1 x 1). slice_rec is phase 4's record."""
+    from fun_ofdm_tpu_torch.models import frontend
+    from fun_ofdm_tpu_torch.parallel import dryrun
+    from fun_ofdm_tpu_torch.rates import Rate, params_for
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    rec = {}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fun_ofdm_tpu_torch.parallel.dryrun",
+         "--ranks", "4", "--device", RANK_DEVICE, "--backend", "gloo"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    rec["dryrun"] = {"returncode": proc.returncode, "ranks": lines,
+                     "wall_s": time.perf_counter() - t0}
+    print("multi-device dryrun:", json.dumps(rec["dryrun"]), flush=True)
+    if proc.returncode != 0 or len(lines) != 4:
+        raise AssertionError(f"dryrun failed: {proc.stderr[-3000:]}")
+    for r in lines:
+        add(r["launches"])
+
+    # the single-process reference on the card
+    streams, _ = bench_capture_streams(DEVICE)
+    want = delivered_set(frontend.receive_capture_p(
+        streams, Rate[RATE_NAME], LENGTH, FRAMES_PER_CHANNEL))
+    frame_len = params_for(Rate[RATE_NAME]).frame_samples(LENGTH)
+    cut = streams[0].shape[-1] // SHARD_MESH[1]
+    straddling = [k for k in range(FRAMES_PER_CHANNEL)
+                  if k * frame_len < cut < (k + 1) * frame_len]
+    if len(want) != CHANNELS * FRAMES_PER_CHANNEL or not straddling:
+        raise AssertionError(f"reference: {len(want)} frames, straddling "
+                             f"{straddling}")
+    me = str(Path(__file__).resolve())
+    for name, n, backend in (("gloo_2x2", 4, "gloo"), ("nccl_1x1", 1, "nccl")):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ranks = _rank_lines(dryrun.launch(
+                [sys.executable, me, "--shard-worker", "--out", tmp,
+                 "--backend", backend], n, 300, env=env), name)
+            for r in range(n):
+                got = delivered_set({k: torch.from_numpy(v) for k, v in
+                                     np.load(Path(tmp) / f"rank{r}.npz")
+                                     .items()})
+                if got != want:
+                    raise AssertionError(
+                        f"{name} rank {r}: {len(got)} frames delivered, "
+                        f"{len(got ^ want)} differ from the single-process "
+                        f"receive")
+        rec[name] = {"ranks": ranks, "frames": len(want),
+                     "straddling_frame_per_channel": straddling,
+                     "wall_s": time.perf_counter() - t0,
+                     "phase4_single_process_wall_ms":
+                         slice_rec["receive_wall_ms"]}
+        print(f"multi-device {name}:", json.dumps(rec[name]), flush=True)
+        for r in ranks:
+            add(r["launches"])
+    rec["launches"] = launches
     return rec
 
 
@@ -1407,6 +1743,8 @@ def api_phase(select_rec: dict) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--shard-worker"]:
+        return shard_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1425,16 +1763,19 @@ def main() -> int:
           flush=True)
 
     cases = kernel_phase()
-    _, launches = slice_phase()
+    slice_rec, launches = slice_phase()
     blocked = blocked_phase()
     dense = dense_stream_phase()
+    sparse = sparse_stream_phase()
     all_rates = all_rates_phase()
-    for rec in (dense, sparse_stream_phase(), all_rates,
-                multichannel_phase()):
+    multichannel = multichannel_phase()
+    root = Path(__file__).resolve().parent
+    for rec in (dense, sparse, all_rates, multichannel,
+                adaptive_phase(dense, sparse, multichannel),
+                multi_device_phase(root, slice_rec)):
         for name, count in rec["launches"].items():
             launches[name] += count
     ablate, ab_launches = ablation_phase()
-    root = Path(__file__).resolve().parent
     api = api_phase(all_rates)
     for name in ("viterbi_acs", "viterbi_chainback", "viterbi_acs_windowed",
                  "viterbi_splice_guard"):

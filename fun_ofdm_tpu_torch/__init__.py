@@ -9,15 +9,18 @@ sample I/O over a loopback bus, files and UDP (`runtime.io`), the channel
 simulator with its BER/PER harness (`sim`), and the user API of
 fun_ofdm_tpu: `Transmitter` and `Receiver` (`api`), with the five example
 programs as `python -m fun_ofdm_tpu_torch.examples.{sim,tx,rx,transceiver,
-capture}`. The Viterbi is hand-written CUDA (`csrc/viterbi.cu`: the exact
-decode, the block-overlap decode, and the ACS ablation variants of the A/B
-harness `tools.viterbi_acs_ab`). Its modules mirror fun_ofdm_tpu's
-(`ops/`, `models/`, `runtime/`, `sim/`, `utils/`, `api`); fun_ofdm_tpu is
-the reference it is tested against. Not ported: the adaptive superstep
-ladder (`ChainParams.latency_target_ms`) and the multi-device sharding.
+capture}`. The chain's adaptive superstep ladder
+(`ChainParams.latency_target_ms`) delivers sparse streams without waiting
+out a full superstep; `parallel` receives a capture sharded over a
+(channel, time) mesh of torch.distributed ranks, one device each. The
+Viterbi is hand-written CUDA (`csrc/viterbi.cu`: the exact decode, the
+block-overlap decode, and the ACS ablation variants of the A/B harness
+`tools.viterbi_acs_ab`). Its modules mirror fun_ofdm_tpu's (`ops/`,
+`models/`, `runtime/`, `parallel/`, `sim/`, `utils/`, `api`);
+fun_ofdm_tpu is the reference it is tested against.
 
-Entry points take `device` and default to "cuda"; none moves to the CPU
-when it finds no GPU.
+Entry points take `device` and default to "cuda" (a rank's mesh to
+"cuda:<local rank>"); none moves to the CPU when it finds no GPU.
 
 The rate table, the preamble, the chain configuration, the wire formats,
 the native chunker and the sample I/O are the port's own copies of

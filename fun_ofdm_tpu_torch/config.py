@@ -87,9 +87,7 @@ class ChainParams:
                           round-trip floor instead of waiting out a
                           2^20-sample superstep (the reference delivers
                           per 4096-chunk, src/receiver.cpp:42-58).
-                          Works for single- and multi-channel chains in
-                          fun_ofdm_tpu; the port's chain does not take
-                          it yet (it raises NotImplementedError).
+                          Works for single- and multi-channel chains.
       min_frame_samples:  shortest frame the detection capacity must
                           accommodate. None (default) = the shortest
                           frame any configured rate can produce (the

@@ -1,10 +1,10 @@
 """Streaming receiver chain: superstep-pipelined chunked RX, in PyTorch.
 
 Counterpart of fun_ofdm_tpu/runtime/chain.py (the reference's
-receiver_chain, src/receiver_chain.cpp:29-126) in its fixed-superstep
-mode: `process_samples(chunk)` takes sample runs of any length and
-returns every CRC-valid payload whose frame has completed. Device work is
-batched into supersteps of `strides_per_step` chunks:
+receiver_chain, src/receiver_chain.cpp:29-126): `process_samples(chunk)`
+takes sample runs of any length and returns every CRC-valid payload whose
+frame has completed. Device work is batched into supersteps of
+`strides_per_step` chunks:
 
   * the device keeps a rolling sample window; each superstep ships its
     samples once (optionally as int16/int12/int10/int8 wire words,
@@ -24,15 +24,24 @@ waits only when a stage holds more than pipeline_depth supersteps, or
 takes a result early when its event has already fired. On a CPU device
 everything is synchronous.
 
-A frame belongs to the superstep whose owned [0, step) region holds its
-preamble start; equal duplicate starts are dropped before decode, so
-every frame is delivered once.
+A dispatch of k samples owns the k samples that lag ingestion by `halo`
+(the window slice [window - halo - k, window - halo)); a frame belongs to
+the dispatch whose owned region holds its preamble start, and equal
+duplicate starts are dropped before decode, so every frame is delivered
+once for any sequence of dispatch sizes.
+
+With ChainParams.latency_target_ms set, the chain is adaptive: samples
+wait in a pending float buffer; a backlog of a full superstep dispatches
+at once, and once the oldest pending sample is half the target old the
+backlog goes out in the largest rungs of a ladder of dispatch sizes
+(1, 4, 16, 64, 256 strides, then the superstep) that fit, every rung
+rolled into the same window. A sparse stream is then delivered near the
+transport's round trip instead of after a 2^20-sample superstep.
 
 The host side is the port's own: the native chunker (runtime/native.py,
 csrc/stream_runtime.cpp) and the wire formats (runtime/wire.py), copies of
 fun_ofdm_tpu's. cfo_correct=True runs the coarse + fine CFO cascade in the
-header pass and in every decode. Not ported yet: the adaptive superstep
-ladder (ChainParams.latency_target_ms).
+header pass and in every decode.
 """
 
 from __future__ import annotations
@@ -108,17 +117,17 @@ def _to_float(c: torch.Tensor, fmt: str, scale: float) -> torch.Tensor:
     return c
 
 
-def _headers_block(wr, wi, step: int, max_frames: int, n_hdr: int,
+def _headers_block(wr, wi, off: int, step: int, max_frames: int, n_hdr: int,
                    params: ChainParams, cfo_correct: bool) -> torch.Tensor:
-    """Detection + SIGNAL headers over the window's first step +
-    DETECT_LEAD samples (the owned region and the lead a header needs),
-    packed as a (C, 6, n_hdr) int32 block (rows: starts, valid,
-    rate_field, hdr_length, header_ok, and a trailer [dropped,
-    n_detected]). Drops are counted in the owned region only: the lead
-    is scanned again by the next superstep."""
-    n = step + DETECT_LEAD
+    """Detection + SIGNAL headers over the window slice [off, off + step +
+    DETECT_LEAD) (the owned region and the lead a header needs), packed
+    as a (C, 6, n_hdr) int32 block (rows: starts, valid, rate_field,
+    hdr_length, header_ok, and a trailer [dropped, n_detected]). Drops
+    are counted in the owned region only: the lead is scanned again by
+    the next dispatch."""
+    n = off + step + DETECT_LEAD
     h = frontend.decode_headers_p(
-        (wr[..., :n], wi[..., :n]), max_frames, params=params,
+        (wr[..., off:n], wi[..., off:n]), max_frames, params=params,
         drop_count_limit=step, cfo_correct=cfo_correct,
         hdr_slots=None if n_hdr == max_frames else n_hdr)
     rows = torch.stack([h[k].to(torch.int32) for k in
@@ -271,7 +280,9 @@ class ReceiverChain:
       params: chain thresholds, chunk size and superstep batching.
         strides_per_step=None means 1 on a CPU device and
         AUTO_STEP_SAMPLES // chunk_size (256 at 4096) on a GPU.
-        latency_target_ms (the adaptive ladder) is not ported yet.
+        latency_target_ms makes the chain adaptive (see the module
+        docstring): its ladder's rungs are 1, 4, 16, 64 and 256 strides
+        below strides_per_step, then strides_per_step.
       cfo_correct: estimate each frame's carrier offset (coarse STS +
         fine LTS cascade) and derotate it, in the header pass and in the
         payload decode. Pair with ChainParams(lts_segments=4) for offsets
@@ -320,10 +331,6 @@ class ReceiverChain:
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no chain for device {self.device}")
-        if params.latency_target_ms is not None:
-            raise NotImplementedError(
-                "ChainParams.latency_target_ms: the adaptive superstep "
-                "ladder is not ported yet (ROADMAP.md, Queue 1)")
         if max_length > MAX_FRAME_SIZE:
             raise ValueError(f"max_length > MAX_FRAME_SIZE ({MAX_FRAME_SIZE})")
         if ingest_dtype not in INGEST_FORMATS:
@@ -365,6 +372,12 @@ class ReceiverChain:
                    for r in self.rates)
         self.halo = max(halo, DETECT_LEAD)
         self.window = self.step + self.halo
+        self.adaptive = params.latency_target_ms is not None
+        if self.adaptive:
+            # dispatch sizes in strides, each rolled into the same window
+            self._ladder = [r for r in (1, 4, 16, 64, 256)
+                            if r < self.strides_per_step]
+            self._ladder.append(self.strides_per_step)
         self.verbose = bool(verbose)
         self.pipeline_depth = max(1, int(pipeline_depth))
         # detection capacity: back-to-back shortest frames anywhere in
@@ -372,15 +385,8 @@ class ReceiverChain:
         min_frame = min(params_for(r).frame_samples(0) for r in self.rates)
         if params.min_frame_samples is not None:
             min_frame = max(min_frame, int(params.min_frame_samples))
-        if params.max_frames_per_chunk is not None:
-            self.max_frames = (int(params.max_frames_per_chunk)
-                               * self.strides_per_step)
-        else:
-            self.max_frames = -(-(self.step + DETECT_LEAD) // min_frame) + 1
-        # >= 2: the header-block trailer carries [dropped, n_detected]
-        self.max_frames = max(2, self.max_frames)
-        self._n_hdr = self.max_frames if params.header_slots is None \
-            else max(2, min(params.header_slots, self.max_frames))
+        self._min_frame = min_frame
+        self.max_frames = self._capacity(self.step)
         self._valid_fields = {params_for(r).rate_field: r for r in self.rates}
         self._classes = length_classes(self.rates, self.max_length)
         self._field_class = {
@@ -392,12 +398,14 @@ class ReceiverChain:
         if prewarm_exact and self.device.type == "cuda":
             viterbi_cuda.build()
 
-        # host side: slice pushes into exact supersteps (single channel:
-        # the native chunker; multi-channel: a list of (C, k) pieces)
+        # host side: slice pushes into dispatches (fixed single channel:
+        # the native chunker; otherwise a list of pending (re, im) float32
+        # pieces, 1-D or (C, k), taken in supersteps or at ladder sizes)
         self._rechunk = native.Chunker(self.step, self.step) \
-            if self.channels == 1 else None
-        self._mc_buf: list = []
-        self._mc_avail = 0
+            if self.channels == 1 and not self.adaptive else None
+        self._pend: list = []
+        self._pend_n = 0              # pending samples (per channel)
+        self._pend_t0: float | None = None  # adaptive: oldest one's arrival
         # device side: rolling window state
         self._dev_win = None
         self._s_total = 0             # samples ingested (incl. warm-up pad)
@@ -407,6 +415,21 @@ class ReceiverChain:
         self._dec_q: collections.deque = collections.deque()
 
     # --- device passes -----------------------------------------------------
+
+    def _capacity(self, step: int) -> int:
+        """Detection slots of a dispatch of `step` samples: back-to-back
+        shortest frames anywhere in [0, step + DETECT_LEAD) cannot exhaust
+        them (>= 2: the header block's trailer holds [dropped,
+        n_detected])."""
+        if self.params.max_frames_per_chunk is not None:
+            return max(2, int(self.params.max_frames_per_chunk)
+                       * max(1, step // self.stride))
+        return max(2, -(-(step + DETECT_LEAD) // self._min_frame) + 1)
+
+    def _header_slots(self, cap: int) -> int:
+        """Headers decoded per dispatch of capacity `cap`."""
+        hs = self.params.header_slots
+        return cap if hs is None else max(2, min(hs, cap))
 
     def _decode_fn(self, rate, bucket: int, exact: bool = False):
         """Decode pass for one bucket. rate: a Rate (single-rate), a tuple
@@ -420,18 +443,57 @@ class ReceiverChain:
 
     # --- streaming API ----------------------------------------------------
 
+    def _take(self, k: int):
+        """Pop the first k samples (last axis) off the pending pieces."""
+        taken, got = [], 0
+        while got < k:
+            re, im = self._pend[0]
+            need = k - got
+            if re.shape[-1] <= need:
+                taken.append(self._pend.pop(0))
+                got += re.shape[-1]
+            else:
+                taken.append((re[..., :need], im[..., :need]))
+                self._pend[0] = (re[..., need:], im[..., need:])
+                got = k
+        self._pend_n -= k
+        return tuple(np.concatenate(x, axis=-1) for x in zip(*taken))
+
+    def _pump(self) -> None:
+        """Adaptive dispatch: full supersteps while a superstep is
+        pending; once the oldest pending sample is half the latency target
+        old, the backlog in the largest rungs that fit. A residue under one
+        stride stays pending (flush() pads it)."""
+        while self._pend_n >= self.step:
+            self._ingest(*self._take(self.step))
+        if not self._pend_n:
+            self._pend_t0 = None
+            return
+        if self._pend_t0 is None:
+            self._pend_t0 = time.perf_counter()
+        age_ms = (time.perf_counter() - self._pend_t0) * 1e3
+        if age_ms < self.params.latency_target_ms / 2:
+            return
+        for r in reversed(self._ladder):
+            k = r * self.stride
+            while self._pend_n >= k:
+                self._ingest(*self._take(k))
+        if not self._pend_n:
+            self._pend_t0 = None
+
     def process_samples(self, samples) -> list[DecodedPacket]:
         """Feed a chunk of samples; return packets completed by it.
 
-        samples: 1-D complex array, or planar (re, im) arrays. Planar
-        arrays already in ingest_dtype (a radio's native sc16/sc8
-        buffers, or packed int12/int10 bytes) ship as they are when they
-        come in whole supersteps; other integer wire buffers are rescaled
-        to float32 once and rechunked. Packets may come back on a later
-        call than the one that completed them; flush() drains everything.
+        samples: 1-D complex array, or planar (re, im) arrays ((C, n)
+        with several channels). Planar arrays already in ingest_dtype (a
+        radio's native sc16/sc8 buffers, or packed int12/int10 bytes) ship
+        as they are when they come in whole supersteps (not in adaptive
+        mode); other integer wire buffers are rescaled to float32 once and
+        rechunked. Packets may come back on a later call than the one
+        that completed them; flush() drains everything.
         """
-        if self.channels > 1:
-            return self._process_multichannel(samples)
+        if self.channels > 1 or self.adaptive:
+            return self._process_pending(samples)
         if isinstance(samples, tuple):
             n = samples[0].size
             np_dtype, scale = INGEST_FORMATS[self.ingest_dtype]
@@ -482,35 +544,20 @@ class ReceiverChain:
             self._ingest(chunk[0], chunk[1])
         return self._drain(force=False)
 
-    def _mc_take(self, k: int):
-        """Pop k samples per channel from the multi-channel accumulator."""
-        taken_re, taken_im, got = [], [], 0
-        while got < k:
-            re, im = self._mc_buf[0]
-            need = k - got
-            if re.shape[-1] <= need:
-                taken_re.append(re)
-                taken_im.append(im)
-                got += re.shape[-1]
-                self._mc_buf.pop(0)
-            else:
-                taken_re.append(re[:, :need])
-                taken_im.append(im[:, :need])
-                self._mc_buf[0] = (re[:, need:], im[:, need:])
-                got = k
-        self._mc_avail -= k
-        return (np.concatenate(taken_re, axis=-1),
-                np.concatenate(taken_im, axis=-1))
-
-    def _process_multichannel(self, samples) -> list[DecodedPacket]:
-        """process_samples for channels > 1: (C, n) complex or planar
-        buffers, the same wire formats and fast paths."""
+    def _process_pending(self, samples) -> list[DecodedPacket]:
+        """process_samples for channels > 1 ((C, n) complex or planar
+        buffers, the same wire formats and, in fixed mode, the same fast
+        paths) and for adaptive chains: samples that miss a fast path wait
+        as float32 pieces in the pending list (packed bytes unpacked,
+        other integer wire buffers rescaled; _ingest packs or quantizes
+        each dispatch again)."""
         if not isinstance(samples, tuple):
             arr = np.asarray(samples)
             samples = (np.ascontiguousarray(arr.real, dtype=np.float32),
                        np.ascontiguousarray(arr.imag, dtype=np.float32))
         re, im = np.asarray(samples[0]), np.asarray(samples[1])
-        if re.ndim != 2 or re.shape[0] != self.channels:
+        if self.channels > 1 and (re.ndim != 2
+                                  or re.shape[0] != self.channels):
             raise ValueError(
                 f"multi-channel chain expects (channels={self.channels}, n)"
                 " buffers")
@@ -520,7 +567,8 @@ class ReceiverChain:
             gb, gs = PACKED_FORMATS[self.ingest_dtype]
             pb = self.step * gb // gs
             n = re.shape[-1] * gs // gb
-            if self._mc_avail == 0 and re.shape[-1] % pb == 0:
+            if not self.adaptive and self._pend_n == 0 \
+                    and re.shape[-1] % pb == 0:
                 self.stats.samples_in += n * self.channels
                 self._t_real += n
                 for i in range(0, re.shape[-1], pb):
@@ -534,7 +582,8 @@ class ReceiverChain:
             im = _unpack_np(im, self.ingest_dtype, scale)
         elif (re.dtype == np_dtype and im.dtype == np_dtype
                 and np_dtype != np.float32
-                and self._mc_avail == 0
+                and not self.adaptive
+                and self._pend_n == 0
                 and re.shape[-1] % self.step == 0):
             self.stats.samples_in += re.size
             self._t_real += re.shape[-1]
@@ -549,34 +598,41 @@ class ReceiverChain:
         im = np.ascontiguousarray(im, dtype=np.float32)
         self.stats.samples_in += re.size
         self._t_real += re.shape[-1]
-        self._mc_buf.append((re, im))
-        self._mc_avail += re.shape[-1]
-        while self._mc_avail >= self.step:
-            self._ingest(*self._mc_take(self.step))
+        self._pend.append((re, im))
+        self._pend_n += re.shape[-1]
+        if self.adaptive:
+            self._pump()
+        else:
+            while self._pend_n >= self.step:
+                self._ingest(*self._take(self.step))
         return self._drain(force=False)
 
     def flush(self, terminal: bool = True) -> list[DecodedPacket]:
         """Drain buffered samples (zero-padding the tail) at stream end.
 
-        Rolls zero supersteps through the window until every real sample
-        has been owned. terminal=False also resets the window and the
+        Rolls zero dispatches through the window until every real sample
+        has been owned: supersteps in fixed mode; in adaptive mode the
+        residue padded to the smallest rung that holds it, then one
+        stride at a time. terminal=False also resets the window and the
         stream position, so the same chain serves a next stream whose
         packet starts count from 0 again; stats stay cumulative."""
         if self._t_real == 0:
             return []
-        if self.channels == 1:
-            tail = self._rechunk.pop(pad=True)
-            if tail is not None:
-                self._ingest(tail[0], tail[1])
-            zeros = np.zeros(self.step, np.float32)
+        if self._rechunk is not None:
+            tail = self._rechunk.pop(pad=True)      # (re, im, pos) or None
+            tail = None if tail is None else tail[:2]
         else:
-            if self._mc_avail:
-                re, im = self._mc_take(self._mc_avail)
-                z = np.zeros((self.channels, self.step - re.shape[-1]),
-                             np.float32)
-                self._ingest(np.concatenate([re, z], axis=-1),
-                             np.concatenate([im, z], axis=-1))
-            zeros = np.zeros((self.channels, self.step), np.float32)
+            tail = self._take(self._pend_n) if self._pend_n else None
+        if tail is not None:
+            n = tail[0].shape[-1]
+            size = self.step if not self.adaptive else self.stride * next(
+                r for r in self._ladder if r * self.stride >= n)
+            pad = [(0, 0)] * (tail[0].ndim - 1) + [(0, size - n)]
+            self._ingest(*(np.pad(t, pad) for t in tail))
+        # zero dispatches: supersteps, or single strides in adaptive mode
+        k = self.stride if self.adaptive else self.step
+        zeros = np.zeros((k,) if self.channels == 1 else (self.channels, k),
+                         np.float32)
         # ownership lags ingestion by `halo`
         while self._s_total - self.halo < self._t_real:
             self._ingest(zeros, zeros)
@@ -585,17 +641,17 @@ class ReceiverChain:
             self._dev_win = None
             self._s_total = 0
             self._t_real = 0
+            self._pend, self._pend_n, self._pend_t0 = [], 0, None
             if self._rechunk is not None:
                 self._rechunk = native.Chunker(self.step, self.step)
-            self._mc_buf = []
-            self._mc_avail = 0
         return packets
 
     # --- pipeline stages ---------------------------------------------------
 
     def _ingest(self, c_re: np.ndarray, c_im: np.ndarray) -> None:
-        """Ship one superstep of samples to the device, roll it into the
-        window and queue the detection + header pass."""
+        """Ship one dispatch of samples (a superstep, or a ladder rung) to
+        the device, roll it into the window and queue the detection +
+        header pass over the samples it owns."""
         if self._dev_win is None:
             shape = (self.window,) if self.channels == 1 \
                 else (self.channels, self.window)
@@ -620,23 +676,28 @@ class ReceiverChain:
         wr, wi = (torch.cat([w[..., k:], c], dim=-1)
                   for w, c in zip(self._dev_win, (cr, ci)))
         self._dev_win = (wr, wi)
-        # this superstep owns the k samples lagging ingestion by `halo`
+        # this dispatch owns the k samples lagging ingestion by `halo`
+        # (they tile the stream for any sequence of dispatch sizes)
         gpos = self._s_total - self.halo
         self._s_total += k
         if gpos + k <= 0:
             return  # warm-up: owned region entirely before the stream
-        hdr = _headers_block(wr, wi, self.step, self.max_frames,
-                             self._n_hdr, self.params, self.cfo_correct)
+        cap = self._capacity(k)
+        hdr = _headers_block(wr, wi, self.window - self.halo - k, k, cap,
+                             self._header_slots(cap), self.params,
+                             self.cfo_correct)
         self.stats.windows += 1
         self._hdr_q.append((gpos, k, self._dev_win, _Fetch(hdr)))
 
-    def _dispatch_one(self, win, rate, chs, local_starts, jobs) -> None:
+    def _dispatch_one(self, win, off, rate, chs, local_starts,
+                      jobs) -> None:
         """Queue decode jobs for (channel, start) pairs of all channels,
         padded to a bucket with copies of the first start (their rows are
-        dropped on the host); more than the largest bucket splits. The
-        channel folds into the start (ch * window + start) of the
+        dropped on the host); more than the largest bucket splits. A start
+        counts from the owned region, which begins at window index `off`;
+        the channel folds in too (ch * window + off + start) to index the
         flattened window."""
-        flat = chs.astype(np.int64) * self.window + local_starts
+        flat = chs.astype(np.int64) * self.window + off + local_starts
         for lo in range(0, flat.size, DECODE_BUCKETS[-1]):
             part = slice(lo, lo + DECODE_BUCKETS[-1])
             fpart = flat[part]
@@ -648,7 +709,8 @@ class ReceiverChain:
             jobs.append((rate, chs[part], local_starts[part], fpart.copy(),
                          _Fetch(out)))
 
-    def _dispatch_decodes(self, win, chs, starts, fields, jobs) -> None:
+    def _dispatch_decodes(self, win, off, chs, starts, fields,
+                          jobs) -> None:
         """Queue the payload decodes of one superstep's owned frames (all
         channels together): one job per length class in universal mode,
         one per rate otherwise."""
@@ -657,11 +719,13 @@ class ReceiverChain:
                 sel = np.array([self._field_class.get(int(f)) == ci
                                 for f in fields])
                 if sel.any():
-                    self._dispatch_one(win, cls, chs[sel], starts[sel], jobs)
+                    self._dispatch_one(win, off, cls, chs[sel],
+                                       starts[sel], jobs)
         else:
             for field_val in np.unique(fields):
                 sel = fields == field_val
-                self._dispatch_one(win, self._valid_fields[int(field_val)],
+                self._dispatch_one(win, off,
+                                   self._valid_fields[int(field_val)],
                                    chs[sel], starts[sel], jobs)
 
     def _redecode_exact(self, win, rate, flat_bad) -> np.ndarray:
@@ -727,17 +791,20 @@ class ReceiverChain:
         result is synced when its queue is deeper than that or when its
         copy has already arrived."""
         keep = 0 if force else self.pipeline_depth
-        cap, n_hdr = self.max_frames, self._n_hdr
         while self._hdr_q and (len(self._hdr_q) > keep
                                or self._hdr_q[0][3].ready()):
             gpos, step_k, win, hdr = self._hdr_q.popleft()
+            # each dispatch's own size, capacity and header budget
+            off = self.window - self.halo - step_k
+            cap = self._capacity(step_k)
+            n_hdr = self._header_slots(cap)
             t0 = time.perf_counter()
             hs = hdr.numpy().reshape(self.channels, _HDR_ROWS, n_hdr)
             if n_hdr < cap and int(hs[:, 5, 1].max()) > n_hdr:
                 # more detections than the header budget: re-run the
                 # full-capacity pass on the (unchanged) window
                 self.stats.header_overflows += 1
-                full = _headers_block(win[0], win[1], self.step, cap, cap,
+                full = _headers_block(win[0], win[1], off, step_k, cap, cap,
                                       self.params, self.cfo_correct)
                 hs = _Fetch(full).numpy().reshape(self.channels, _HDR_ROWS,
                                                   cap)
@@ -786,11 +853,12 @@ class ReceiverChain:
                     sel_starts.append(starts[idx].astype(np.int32))
                     sel_fields.append(fields[idx])
             if sel_chs:
-                # the owned region starts the window: a start is a window
-                # index
+                # the owned region starts at window index `off` (0 for a
+                # superstep)
                 self._dispatch_decodes(
-                    win, np.concatenate(sel_chs), np.concatenate(sel_starts),
-                    np.concatenate(sel_fields), jobs)
+                    win, off, np.concatenate(sel_chs),
+                    np.concatenate(sel_starts), np.concatenate(sel_fields),
+                    jobs)
             if jobs:
                 self._dec_q.append((gpos, win, jobs))
 

@@ -7,8 +7,8 @@ packets (payload, rate, length, start, channel, in delivery order) after
 aside). Streams are small (payloads <= 120 bytes, <= 30k samples per
 channel); frames come from the JAX TX builder as float32. The port's
 own tests at the end cover what has no JAX twin: the merge-guard
-re-decode, the viterbi_impl knob, the required device, the parts not
-ported, and that the chain imports no jax.
+re-decode, the viterbi_impl knob, the required device and the adaptive
+ladder's rungs.
 """
 
 import dataclasses
@@ -268,9 +268,9 @@ def test_static_tables_match_jax():
                      "_classes", "_field_class", "_valid_fields"):
             assert getattr(t, attr) == getattr(j, attr), (attr, kw)
         assert chain.length_classes(t.rates, t.max_length) == j._classes
-        assert t._n_hdr == (j.max_frames if j.params.header_slots is None
-                            else max(2, min(j.params.header_slots,
-                                            j.max_frames)))
+        assert t._header_slots(t.max_frames) == (
+            j.max_frames if j.params.header_slots is None
+            else max(2, min(j.params.header_slots, j.max_frames)))
     assert chain.DECODE_BUCKETS == j_chain.DECODE_BUCKETS
     assert chain._impl_for_bucket("auto", 64) == \
         j_chain._impl_for_bucket("auto", 64) == "pallas-blocked"
@@ -331,9 +331,10 @@ def test_device_is_required_and_unported_parts_raise():
     with pytest.raises(ValueError, match="no chain"):
         chain.ReceiverChain(device="meta")
     assert chain.ReceiverChain(cfo_correct=True, device="cpu").cfo_correct
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        chain.ReceiverChain(params=ChainParams(latency_target_ms=20.0),
-                            device="cpu")
+    adaptive = chain.ReceiverChain(
+        params=ChainParams(strides_per_step=300, latency_target_ms=20.0),
+        device="cpu")
+    assert adaptive.adaptive and adaptive._ladder == [1, 4, 16, 64, 256, 300]
     with pytest.raises(ValueError, match="64-QAM"):
         chain.ReceiverChain(ingest_dtype="int8", device="cpu")
     c = chain.ReceiverChain(rates=(Rate.RATE_1_2_QPSK,), max_length=16,
