@@ -29,13 +29,17 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      to torch.cuda.synchronize(), mean of 10 calls after 3 warm-ups),
      then a torch.profiler pass over 3 calls (the card's busy share, the
      busiest items, the Viterbi kernels' device time);
-  5. the block-overlap kernels (windowed ACS, chainback, splice + merge
-     guard) against their plain versions on the card, bit-exact (bits and
-     merge flags, tolerance 0): 64 and 4 frames x 12,090 bits of noisy
-     soft pairs (16 blocks, warm-up 128), the warm-up-2 guard case, mixed
-     per-frame lengths, all-erasure, and phase 13's shapes (64 frames of
-     every length up to 16,194 and 16,074 bits, windows of 1,270 and
-     1,262 steps); with both times (CUDA events);
+  5. the block-overlap decode (one call of blocked_decode: the window
+     kernel and the guard kernel) against its plain versions on the card,
+     bit-exact (bits, merge flags and the packed overlap words, tolerance
+     0): 64 and 4 frames x 12,090 bits of noisy soft pairs (16 blocks,
+     warm-up 128), the warm-up-2 guard case, mixed per-frame lengths,
+     all-erasure, uniform soft pairs (no information), and phase 13's
+     shapes (64 frames of every length up to
+     16,194 and 16,074 bits, windows of 1,270 and 1,262 steps); at 64 and
+     4 frames the decode's time through the entry point (CUDA events),
+     each kernel's device time (torch.profiler), the bound and the
+     step-chain floor (the longest window's steps x the ACS step's time);
   6. the streaming ReceiverChain on a dense stream at bench.py's
      reference-parity configuration (RATE_3_4_QAM16, 1500 bytes,
      ChainParams(): 1,048,576-sample supersteps, int10 wire): phase 4's
@@ -200,9 +204,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def register_report(ptxas_log: str) -> dict:
-    """{kernel: registers} from nvcc's -Xptxas -v report; a template
-    instance is named by its mode, e.g. acs_ablate_kernel<0>."""
+def ptxas_report(ptxas_log: str) -> dict:
+    """{kernel: {"registers": n, "smem_static": bytes}} from nvcc's -Xptxas
+    -v report; a template instance is named by its mode, e.g.
+    acs_ablate_kernel<0>. Dynamic shared memory is not in the report."""
     out, name = {}, None
     for ln in ptxas_log.splitlines():
         entry = re.search(r"entry function '(\w+)'", ln)
@@ -213,9 +218,17 @@ def register_report(ptxas_log: str) -> dict:
                 m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""))
         regs = re.search(r"Used (\d+) registers", ln)
         if regs and name is not None:
-            out[name] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name] = {"registers": int(regs.group(1)),
+                         "smem_static": int(smem.group(1)) if smem else 0}
             name = None
     return out
+
+
+def register_report(ptxas_log: str) -> dict:
+    """{kernel: registers} from nvcc's -Xptxas -v report, named as
+    ptxas_report names them."""
+    return {k: v["registers"] for k, v in ptxas_report(ptxas_log).items()}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -422,11 +435,11 @@ def slice_phase() -> tuple[dict, dict]:
 
 
 def kernel_record(kernel: str, replaces: str, cases: list, launches: dict):
-    """The result entry of kernel "acs", "chainback", "acs_windowed",
-    "splice_guard" or "acs_ablate"; `replaces` is where its TPU
-    counterpart starts (for the exact pair, the radix-4 kernel the TPU
-    path runs). The first case of `cases` is the timed one. No single
-    PyTorch call computes a Viterbi step, so library_ms is null."""
+    """The result entry of kernel "acs", "chainback", "blocked_decode" or
+    "acs_ablate"; `replaces` is where its TPU counterpart starts (for the
+    exact pair, the radix-4 kernel the TPU path runs). The first case of
+    `cases` is the timed one. No single PyTorch call computes a Viterbi
+    step, so library_ms is null."""
     name = f"viterbi_{kernel}"
     bound_ms, bound_by = cases[0][f"{kernel}_bound"]
     return {"name": name, "route": "cuda",
@@ -442,13 +455,18 @@ def kernel_record(kernel: str, replaces: str, cases: list, launches: dict):
 
 def blocked_case(name, soft_np, nbits, n_blocks=16, warmup=128,
                  nbits_dynamic=None, timed=False):
-    """The block-overlap kernels vs their plain versions on one input.
+    """The block-overlap decode's kernels vs their plain versions on one
+    input.
 
-    Each kernel's output is held against its plain version on the same
-    input: the windowed ACS's decisions, the chainback of those decisions
-    (the exact pair's kernel), and the splice + guard on the kernel's
-    window bits (bits and merge flags). Frames whose blocked bits differ
-    from the exact decode must carry a False flag."""
+    One call of viterbi_cuda.blocked_decode (the window kernel and the
+    guard kernel) against the plain version of the decode (decode_plain:
+    bits and merge flags) and the plain form of the kernels' own algebra
+    (decode_words_plain's pieces: the packed overlap words, and the bits
+    and flags again). Frames whose blocked bits differ from the exact
+    decode must carry a False flag. Timed: the decode through the entry
+    point (CUDA events), each kernel's device time (torch.profiler), the
+    bound, and the step-chain floor: the longest window's steps times the
+    ACS step's time, read from acs_ablate "full" on the same frames."""
     from fun_ofdm_tpu_torch.ops import viterbi, viterbi_blocked, viterbi_cuda
 
     dev = torch.device("cuda")
@@ -457,33 +475,25 @@ def blocked_case(name, soft_np, nbits, n_blocks=16, warmup=128,
     steps = viterbi.step_counts(nbits, nbits_dynamic, (frames,), dev)
     geo = viterbi_blocked.geometry(nbits, n_blocks, warmup)
 
-    def kernels():
-        words = viterbi_cuda.acs_windowed(soft, steps, geo.n_blocks, geo.tb,
-                                          geo.wf, geo.win)
-        win_bits = viterbi_cuda.chainback(words, geo.win)
-        return (words, win_bits) + viterbi_cuda.splice_guard(
-            win_bits.T, steps, nbits, geo.n_blocks, geo.tb, geo.wf, geo.ov,
-            geo.trim)
+    def decode():
+        return viterbi_cuda.blocked_decode(soft, steps, geo)
 
-    words, win_bits, bits, ok = kernels()
+    bits, ok, overlaps = decode()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dec_plain = viterbi_blocked.acs_windowed_plain(soft, steps, geo)
+    bits_plain, ok_plain = viterbi_blocked.decode_plain(soft, steps, geo)
     torch.cuda.synchronize()
-    acs_plain_ms = (time.perf_counter() - t0) * 1e3
-    dec_kernel = unpack_words(words)
-    acs_err = int((dec_kernel.int() - dec_plain.int()).abs().max())
-    del dec_plain
-    cb_err = int((win_bits - viterbi.chainback_plain(dec_kernel, geo.win))
-                 .abs().max())
-    del dec_kernel
-    t0 = time.perf_counter()
-    bits_plain, ok_plain = viterbi_blocked.splice_guard_plain(win_bits, steps,
-                                                              geo)
-    torch.cuda.synchronize()
-    sg_plain_ms = (time.perf_counter() - t0) * 1e3
-    sg_err = max(int((bits - bits_plain).abs().max()),
-                 int((ok != ok_plain).sum()))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    words = viterbi_blocked.window_words_plain(
+        viterbi_blocked.acs_windowed_plain(soft, steps, geo), geo.win)
+    overlaps_plain = viterbi_blocked.pack_overlaps_plain(words, geo)
+    err = max(int((bits - bits_plain).abs().max()) if bits.numel() else 0,
+              int((ok != ok_plain).sum()),
+              int((overlaps != overlaps_plain).sum()),
+              int((bits != viterbi_blocked.span_write_plain(words, geo))
+                  .sum()),
+              int((ok != viterbi_blocked.guard_words_plain(
+                  overlaps_plain, steps, geo)).sum()))
     exact = viterbi.viterbi_decode(soft, nbits, nbits_dynamic=nbits_dynamic)
     nbd = (torch.full((frames,), nbits) if nbits_dynamic is None
            else torch.as_tensor(nbits_dynamic)).to(dev)
@@ -491,40 +501,40 @@ def blocked_case(name, soft_np, nbits, n_blocks=16, warmup=128,
     differs = ((bits != exact) & live).any(-1)
     rec = {"case": name, "frames": frames, "nbits": nbits,
            "n_blocks": geo.n_blocks, "warmup": warmup, "win": geo.win,
-           "acs_windowed_max_abs_err": acs_err,
-           "chainback_max_abs_err": cb_err,
-           "splice_guard_max_abs_err": sg_err,
+           "blocked_decode_max_abs_err": err,
            "flagged": int((~ok).sum()),
            "differs_from_exact": int(differs.sum()),
-           "acs_windowed_plain_ms": acs_plain_ms,
-           "splice_guard_plain_ms": sg_plain_ms}
+           "blocked_decode_plain_ms": plain_ms}
     if timed:
-        rec["acs_windowed_ms"] = cuda_ms(
-            lambda: viterbi_cuda.acs_windowed(soft, steps, geo.n_blocks,
-                                              geo.tb, geo.wf, geo.win),
+        rec["blocked_decode_ms"] = cuda_ms(decode, reps=20)
+        prof = profile_device(lambda: [decode() for _ in range(20)])
+        rec["device_ms"] = {k: ms / n for k, (ms, n)
+                            in prof["viterbi_kernels_ms"].items()}
+        run = viterbi_blocked.window_steps(steps, geo)  # steps per window
+        # the ACS steps, one walk of every window, the span write (a copy
+        # a bit), and the guard's XOR, mask and OR on each cut's words
+        ops = (int(run.sum()) * ACS_OPS_PER_STEP
+               + frames * geo.n_blocks * geo.win * CHAINBACK_OPS_PER_STEP
+               + frames * nbits
+               + frames * (geo.n_blocks - 1)
+               * viterbi_blocked.overlap_words(geo) * 3)
+        rec["blocked_decode_bound"] = bound(nbytes(soft, steps, bits, ok),
+                                            ops)
+        init = torch.ones_like(steps)
+        ablate_ms = cuda_ms(
+            lambda: viterbi_cuda.acs_ablate(soft, steps, init, "full"),
             reps=5)
-        rec["splice_guard_ms"] = cuda_ms(
-            lambda: viterbi_cuda.splice_guard(
-                win_bits.T, steps, nbits, geo.n_blocks, geo.tb, geo.wf,
-                geo.ov, geo.trim), reps=5)
-        run = viterbi_blocked.window_steps(steps, geo)  # steps per lane
-        rec["acs_windowed_bound"] = bound(
-            nbytes(soft, steps, words), int(run.sum()) * ACS_OPS_PER_STEP)
-        # the splice copies each bit once, the guard compares each cut's
-        # trimmed overlap once
-        rec["splice_guard_bound"] = bound(
-            nbytes(win_bits, steps, bits, ok.int()),
-            frames * (nbits + (geo.n_blocks - 1)
-                      * (geo.ov - 2 * geo.trim) * 3))
-        rec["blocked_decode_ms"] = cuda_ms(kernels, reps=5)
+        step_ms = ablate_ms / int(steps.max())
+        rec["acs_step_ns"] = step_ms * 1e6
+        rec["step_chain_floor_ms"] = int(run.max()) * step_ms
         rec["exact_decode_ms"] = cuda_ms(
             lambda: viterbi.viterbi_decode(soft, nbits,
                                            nbits_dynamic=nbits_dynamic),
             reps=5)
     print("blocked vs plain:", json.dumps(rec), flush=True)
-    if acs_err or cb_err or sg_err:
-        raise AssertionError(f"blocked kernels disagree with their plain "
-                             f"versions: {rec}")
+    if err:
+        raise AssertionError(f"the blocked decode's kernels disagree with "
+                             f"their plain versions: {rec}")
     if bool((differs & ok).any()):
         raise AssertionError(f"a frame differs from the exact decode with "
                              f"its merge flag set: {rec}")
@@ -551,6 +561,10 @@ def blocked_phase() -> list:
                          rng.integers(0, nbits + 1, size=64))),
         blocked_case("erasure", np.full((16, 2 * (nbits + 6)), 127, np.int32),
                      nbits),
+        # uniform soft pairs carry no information: survivor paths meet
+        # late, and the traceback's corrections take several rounds
+        blocked_case("noinfo", rng.integers(0, 256, (16, 2 * (nbits + 6)),
+                                            dtype=np.int32), nbits),
     ] + [
         # phase 13's shapes: the 64-frame bucket of each length class of the
         # all-rates Receiver at max_length 2000, frames of every length
@@ -790,10 +804,9 @@ def sparse_stream_phase() -> dict:
         lambda: feed_at_cadence(c, s_re, s_im, period))
     wall_s = time.perf_counter() - t0
     check_packets(pkts, planted, "sparse stream")
-    for name in ("viterbi_acs_windowed", "viterbi_splice_guard"):
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was not launched on the sparse "
-                                 f"stream")
+    if launches["viterbi_blocked_decode"] == 0:
+        raise AssertionError("viterbi_blocked_decode was not launched on the "
+                             "sparse stream")
     rec = {"frames": SPARSE_FRAMES, "delivered": len(pkts), "step": c.step,
            "latency_ms_median": float(np.median(lat_ms)),
            "latency_ms_p90": float(np.percentile(lat_ms, 90)),
@@ -968,10 +981,9 @@ def adaptive_phase(dense: dict, sparse: dict, multichannel: dict) -> dict:
         lambda: feed_at_cadence(c, s_re, s_im, period))
     wall_s = time.perf_counter() - t0
     check_packets(pkts, planted, "adaptive sparse stream")
-    for name in ("viterbi_acs_windowed", "viterbi_splice_guard"):
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was not launched on the adaptive "
-                                 f"sparse stream")
+    if launches["viterbi_blocked_decode"] == 0:
+        raise AssertionError("viterbi_blocked_decode was not launched on the "
+                             "adaptive sparse stream")
     rec["sparse"] = {
         "frames": SPARSE_FRAMES, "delivered": len(pkts), "step": c.step,
         "ladder": c._ladder, "dispatches_per_rung": rungs,
@@ -1758,9 +1770,10 @@ def main() -> int:
     viterbi_cuda.build()
     build_s = time.perf_counter() - t0
     log = viterbi_cuda.library_path().with_suffix(".log")
-    report = register_report(log.read_text()) if log.exists() else {}
-    print(f"build: {build_s:.2f} s; registers: {json.dumps(report)}",
-          flush=True)
+    ptxas_log = log.read_text() if log.exists() else ""
+    report = ptxas_report(ptxas_log)
+    print(f"build: {build_s:.2f} s; registers: "
+          f"{json.dumps(register_report(ptxas_log))}", flush=True)
 
     cases = kernel_phase()
     slice_rec, launches = slice_phase()
@@ -1777,8 +1790,8 @@ def main() -> int:
             launches[name] += count
     ablate, ab_launches = ablation_phase()
     api = api_phase(all_rates)
-    for name in ("viterbi_acs", "viterbi_chainback", "viterbi_acs_windowed",
-                 "viterbi_splice_guard"):
+    for name in ("viterbi_acs", "viterbi_chainback",
+                 "viterbi_blocked_decode"):
         if api["launches"][name] == 0:
             raise AssertionError(f"{name} was not launched by the API phase")
     print("api gather vs select:", json.dumps(api["gather_vs_select"]),
@@ -1799,9 +1812,14 @@ def main() -> int:
     vp = "fun_ofdm_tpu/ops/viterbi_pallas.py"
     print(json.dumps({"kernels": [
         kernel_record("acs", f"{vp}:261", cases, launches),
-        kernel_record("chainback", f"{vp}:394", cases + blocked, launches),
-        kernel_record("acs_windowed", f"{vp}:571", blocked, launches),
-        kernel_record("splice_guard", f"{vp}:644", blocked, launches),
+        kernel_record("chainback", f"{vp}:394", cases, launches),
+        dict(kernel_record("blocked_decode", f"{vp}:571", blocked, launches),
+             cases=[c["case"] for c in blocked],
+             ptxas={k: report[k] for k in ("blocked_window_kernel",
+                                           "blocked_guard_kernel")},
+             smem_dynamic_bytes={
+                 c["win"]: viterbi_cuda.build().viterbi_blocked_smem(c["win"])
+                 for c in blocked}),
         kernel_record("acs_ablate", "tools/viterbi_acs_ab.py:148", ablate,
                       launches),
     ]}))

@@ -74,26 +74,42 @@
 // is a chain of shared-memory reads; there are ~1,500 blocks of each at
 // the capture's shape for 132 SMs.
 //
-// Block-overlap decode. `acs_windowed_kernel` and `splice_guard_kernel`
-// replace `_blocked_decode_impl` (fun_ofdm_tpu/ops/viterbi_pallas.py,
-// entry `viterbi_decode_pallas_blocked`), which runs `_decode_tiles` over
-// a gathered (frames, n_blocks, window) stack and splices the windows'
-// bits in XLA. Here the windowed ACS is the same warp-per-trellis ACS, one
-// warp per (frame, block) lane, reading the frame's soft pairs in place
-// at the window's offset (no gathered copy); its step count and init come
-// from the frame's step count, the block index, the block span tb and the
-// lead-in wf. The survivors go through the same chainback, and the
-// splice and merge guard are one more kernel: one block per frame whose
-// threads copy each output bit from its window, and whose first warp
-// compares every cut's doubly decoded overlap, trimmed at both ends and
-// masked to the frame's live bits, and ORs the mismatches into the
-// frame's merge flag. What bounds it on this card is again the serial
-// step chain: a 1500-byte frame becomes 16 lanes of ~1,012 steps each
-// instead of one lane of 12,096, so at the streaming chain's smallest
-// bucket (4 frames, 64 warps on 132 SMs) the decode's latency is the
-// chain of one window, about 12x shorter than a whole frame's. The
-// design does nothing more about occupancy yet: 64 to 1,024 warps do not
-// fill the card, and the overlap adds 2 x 128 steps per window.
+// Block-overlap decode. `blocked_window_kernel` and `blocked_guard_kernel`,
+// launched together by one C entry point, replace `_blocked_decode_impl`
+// (fun_ofdm_tpu/ops/viterbi_pallas.py, entry
+// `viterbi_decode_pallas_blocked`), which runs `_decode_tiles` over a
+// gathered (frames, n_blocks, window) stack and splices the windows' bits
+// in XLA. The window kernel is one warp per (frame, block) lane, as the
+// ACS is one warp per trellis: it reads the frame's soft pairs in place
+// at the window's offset, clamps the step count itself, and runs the
+// unchanged ACS step with its decision words stored in the warp's shared
+// memory ((win + 6) x 8 bytes, 8.1 KB at 1,012 steps), not in device
+// memory. The traceback stays on chip and is exact, the chainback's
+// segments moved into the warp: lane w owns the 32 steps whose bits form
+// the window's output word w. Walking a segment's map of all 64 states,
+// as the chainback does, costs 64 x 32 chain steps a lane, issue-bound,
+// ~9 us a window; one lane walking the whole window is a ~1,012-step
+// dependency chain, ~6 us (both measured, PERF.md and
+// tools/blocked_variants_ab.py). So each lane walks its segment from
+// a guessed state 0, keeping the state of every step, and then every lane
+// whose true entry (the exit of the segment above; state 0 at the top)
+// differs walks again from it only until its state meets the kept path's
+// at the same step: from there the paths are one. The merge is observed,
+// never assumed; rounds repeat until no entry changes, so a window whose
+// paths never merge costs at worst a serial walk. At working SNR one round
+// does, ~1 us a window. The warp then writes its own span of the output
+// (coalesced int32 stores; no neighbour needed) and the two overlap
+// regions of its cuts as packed 32-bit words. The guard kernel is a warp
+// per frame and a lane per cut: an XOR of the two windows' words, masked
+// to the trimmed region and the frame's live bits, and a vote. Survivors
+// and bits never leave the chip; the bytes are the soft pairs in, the
+// bits out and a few overlap words. What bounds it on this card is the
+// serial step chain of one window: ~1,012 steps of ~77 cycles at the
+// capture's geometry, about 0.040 ms at the boost clock, which is the
+// decode's latency at the streaming chain's smallest bucket (4 frames, 64
+// warps on 132 SMs). Nothing here does more about occupancy: 64 to 1,024
+// warps do not fill the card, and the overlap adds 2 x 128 steps per
+// window.
 //
 // ACS ablation. `acs_ablate_kernel<Mode>` replaces tools/viterbi_acs_ab.py's
 // `acs_only` (the pallas_call of `_acs_kernel` alone) and its
@@ -166,19 +182,30 @@ enum AcsMode : int {
   kModeUnrolled = 5,   // the production step (its 32-step loop is unrolled)
 };
 
+// Where acs_trellis puts the decision word of step t: column col of the
+// (total_steps, batch) word array in device memory.
+struct GlobalDecisions {
+  unsigned long long* dec;
+  int batch, col;
+  __device__ __forceinline__ void operator()(int t,
+                                             unsigned long long w) const {
+    dec[(size_t)t * batch + col] = w;
+  }
+};
+
 // One warp runs one trellis. Lane l holds the metrics of states l ("lo")
 // and l + 32 ("hi"). New state s comes from butterfly j = s >> 1, i.e.
 // from old states j and j + 32; lane l's new states l and l + 32 use
-// butterflies l >> 1 and 16 + (l >> 1). Decisions go to column `col` of
-// the (total_steps, batch) word array, zero for steps >= n_steps. Mode
-// selects an ablation variant (kModeFull is the production step); with
-// kWriteFinal the 64 metrics after the last step are written to
-// final_metrics[col * 64 + lane] (lo) and [col * 64 + 32 + lane] (hi).
-template <int Mode = kModeFull, bool kWriteFinal = false>
+// butterflies l >> 1 and 16 + (l >> 1). The decision word of step t goes
+// to store(t, word), zero for steps n_steps <= t < total_steps (Store:
+// GlobalDecisions, or the block-overlap kernel's shared-memory store).
+// Mode selects an ablation variant (kModeFull is the production step);
+// with kWriteFinal the 64 metrics after the last step are written to
+// final_metrics[lane] (lo) and [32 + lane] (hi).
+template <int Mode = kModeFull, bool kWriteFinal = false, class Store>
 __device__ __forceinline__ void acs_trellis(
     const int2* __restrict__ pairs, int n_steps, bool exact_init,
-    unsigned long long* __restrict__ dec, int batch, int col,
-    int total_steps, int* __restrict__ final_metrics = nullptr) {
+    Store store, int total_steps, int* __restrict__ final_metrics = nullptr) {
   const int lane = threadIdx.x;
   const int j_lo = lane >> 1;
   const int j_hi = 16 + (lane >> 1);
@@ -279,18 +306,16 @@ __device__ __forceinline__ void acs_trellis(
       for (int i = 0; i < n_in; ++i) step(i);
     }
     if constexpr (kStore) {
-      if (lane < n_in) dec[(size_t)(t0 + lane) * batch + col] = word;
+      if (lane < n_in) store(t0 + lane, word);
     }
   }
   if constexpr (kStore) {
     // steps past the trellis's count record zero decisions
-    for (int t = n_steps + lane; t < total_steps; t += 32) {
-      dec[(size_t)t * batch + col] = 0ull;
-    }
+    for (int t = n_steps + lane; t < total_steps; t += 32) store(t, 0ull);
   }
   if constexpr (kWriteFinal) {
-    final_metrics[(size_t)col * 64 + lane] = m_lo - off;
-    final_metrics[(size_t)col * 64 + 32 + lane] = m_hi - off;
+    final_metrics[lane] = m_lo - off;
+    final_metrics[32 + lane] = m_hi - off;
   }
 }
 
@@ -301,7 +326,8 @@ acs_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
            int batch, int soft_stride, int total_steps) {
   const int frame = blockIdx.x;
   acs_trellis(reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride),
-              steps[frame], init[frame] == 1, dec, batch, frame, total_steps);
+              steps[frame], init[frame] == 1,
+              GlobalDecisions{dec, batch, frame}, total_steps);
 }
 
 // One warp per frame, an ablation variant of acs_kernel's step, writing
@@ -316,27 +342,8 @@ acs_ablate_kernel(const int* __restrict__ soft, const int* __restrict__ steps,
   const int frame = blockIdx.x;
   acs_trellis<Mode, true>(
       reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride),
-      steps[frame], init[frame] == 1, dec, batch, frame, total_steps,
-      final_metrics);
-}
-
-// One warp per (frame, block) lane b = frame * n_blocks + blk. The window
-// starts at trellis step off = max(0, blk * tb - wf) of the frame's row;
-// it runs min(max(steps[frame] - off, 0), win) steps of win + 6, with the
-// exact init for block 0 and the uniform init for the others.
-__global__ void __launch_bounds__(32)
-acs_windowed_kernel(const int* __restrict__ soft,
-                    const int* __restrict__ steps,
-                    unsigned long long* __restrict__ dec, int lanes,
-                    int soft_stride, int n_blocks, int tb, int wf, int win) {
-  const int b = blockIdx.x;
-  const int frame = b / n_blocks;
-  const int blk = b - frame * n_blocks;
-  const int off = max(0, blk * tb - wf);
-  const int n_steps = min(max(steps[frame] - off, 0), win);
-  acs_trellis(reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride
-                                            + 2 * (size_t)off),
-              n_steps, blk == 0, dec, lanes, b, win + kTail);
+      steps[frame], init[frame] == 1, GlobalDecisions{dec, batch, frame},
+      total_steps, final_metrics + (size_t)frame * 64);
 }
 
 // The chainback's step: the state at step t - 1 from the state at step t.
@@ -500,40 +507,203 @@ chainback_walk_kernel(const unsigned long long* __restrict__ dec,
   }
 }
 
-// One block per frame. Output bit n of the frame lives in block
-// b = n / tb at window index n - b * tb (+ wf for b > 0). The first warp
-// also runs the merge guard: around each cut b, the region
-// [b * tb - wf, b * tb + wc) was decoded by both block b - 1 (at window
-// index prev_start + i) and block b (at i); mismatches at
-// i in [trim, ov - trim) whose bit lies below the frame's live extent
-// clear the frame's flag.
-__global__ void __launch_bounds__(256)
-splice_guard_kernel(const int* __restrict__ win_bits,
-                    const int* __restrict__ steps, int* __restrict__ bits,
-                    int* __restrict__ merge_ok, int lanes, int n_blocks,
-                    int nbits, int tb, int wf, int ov, int trim) {
-  const int frame = blockIdx.x;
-  const int base = frame * n_blocks;
-  for (int n = threadIdx.x; n < nbits; n += blockDim.x) {
-    const int b = n / tb;
-    const int m = n - b * tb + (b > 0 ? wf : 0);
-    bits[(size_t)frame * nbits + n] = win_bits[(size_t)m * lanes + base + b];
+// Traceback scratch bytes per output word of a window: the path's 32
+// states (a 36-byte stride, so the lanes' rows sit in distinct banks) and
+// the segment's exit, entry and wanted entry.
+constexpr int kTraceBytes = 48;
+
+// The block-overlap decode's shared memory, one window per warp: the
+// decision words of steps 6 .. 32 nw + 5 (word m, the word of step m + 6,
+// at m + m / 32: each 32-step segment padded by one word, so the lanes'
+// segments sit in distinct banks), the traceback's scratch (nw x
+// kTraceBytes) and the packed output words (nw + 1, the last zero).
+struct WindowSmem {
+  unsigned long long* words;
+  unsigned char* scratch;
+  unsigned* out;
+  __device__ WindowSmem(unsigned char* base, int nw)
+      : words(reinterpret_cast<unsigned long long*>(base)),
+        scratch(base + (size_t)nw * 33 * 8),
+        out(reinterpret_cast<unsigned*>(scratch + (size_t)nw * kTraceBytes)) {}
+  static constexpr int bytes(int nw) {
+    return nw * 33 * 8 + nw * kTraceBytes + (nw + 1) * 4;
   }
-  if (threadIdx.x < 32) {
-    const int live_hi = min(max(steps[frame] - kTail, 0), nbits);
-    bool mism = false;
-    for (int b = 1; b < n_blocks; ++b) {
-      const int lo = b * tb - wf;
-      const int prev_start = lo - max(0, (b - 1) * tb - wf);
-      for (int i = trim + threadIdx.x; i < ov - trim; i += 32) {
-        const int prev = win_bits[(size_t)(prev_start + i) * lanes + base + b - 1];
-        const int cur = win_bits[(size_t)i * lanes + base + b];
-        mism |= (lo + i < live_hi) && (prev != cur);
-      }
+};
+
+// acs_trellis's store into the window's shared memory: the words of
+// steps 6 and later (the traceback reads no earlier step).
+struct SharedDecisions {
+  unsigned long long* words;
+  __device__ __forceinline__ void operator()(int t,
+                                             unsigned long long w) const {
+    const int m = t - kTail;
+    if (m >= 0) words[m + (m >> 5)] = w;
+  }
+};
+
+// One traceback step on a state kept in bits 26..31 of z (the bits below
+// are stale and never read): the decision bit of state z >> 26 in word
+// becomes the new top bit, and the state shifts down by one. Returns the
+// new z; its bit 31 is the bit read.
+__device__ __forceinline__ unsigned trace_step(unsigned z,
+                                               unsigned long long word) {
+  return __funnelshift_r(z, static_cast<unsigned>(word >> (z >> 26)), 1);
+}
+
+// Bits [lo, hi) of a 32-bit word, both clipped to 0..32.
+__device__ __forceinline__ unsigned bit_range(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, 32);
+  if (hi <= lo) return 0u;
+  return (hi == 32 ? ~0u : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+// One warp per (frame, block) lane b = frame * n_blocks + blk: the window
+// of win steps from trellis step off = max(0, blk * tb - wf) of the
+// frame's row, min(max(min(steps[frame], T) - off, 0), win) of them
+// (T = soft_stride / 2), exact init for block 0 and uniform for the
+// others. The ACS keeps its decision words in shared memory; the warp
+// then traces the window back from state 0 at step win + 5 in 32-step
+// segments, one a lane (lane w owns output word w, bits 32 w .. 32 w + 31
+// of the window, read at steps 32 w + 6 ..; two or more words a lane
+// where win > 1,024): each lane walks its segment from state 0, then
+// corrects it from its true entry until the paths meet (the note at the
+// top). The warp writes the frame's output bits [blk * tb, min((blk + 1)
+// * tb, nbits)) from window index n - blk * tb (+ wf for blk > 0) into
+// bits[frame * nbits + n], and the two overlap regions the guard
+// compares as packed words: overlaps[(b * 2 + 0) * ovw + k], bits
+// [32 k, 32 k + 32) of window region [0, ov) (for blk > 0), and
+// [(b * 2 + 1) * ovw + k], of region [p, p + ov), p = (blk + 1) * tb -
+// wf - off (for blk < n_blocks - 1); zero past ov and elsewhere.
+__global__ void __launch_bounds__(32)
+blocked_window_kernel(const int* __restrict__ soft,
+                      const int* __restrict__ steps, int* __restrict__ bits,
+                      unsigned* __restrict__ overlaps, int soft_stride,
+                      int n_blocks, int nbits, int tb, int wf, int win,
+                      int ov, int ovw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nw = (win + 31) >> 5;
+  const WindowSmem sm(smem_raw, nw);
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  const int frame = b / n_blocks;
+  const int blk = b - frame * n_blocks;
+  const int off = max(0, blk * tb - wf);
+  const int frame_steps = min(max(steps[frame], 0), soft_stride / 2);
+  const int n_steps = min(max(frame_steps - off, 0), win);
+  // every lane runs every collective of the step, also for n_steps == 0
+  acs_trellis(reinterpret_cast<const int2*>(soft + (size_t)frame * soft_stride
+                                            + 2 * (size_t)off),
+              n_steps, blk == 0, SharedDecisions{sm.words},
+              32 * nw + kTail);
+  __syncwarp();
+
+  // the traceback. Lane w walks segment w from state 0 (a guess) and
+  // keeps the path: the state at each of its reads, its bits, its exit.
+  // The segment's true entry is the exit of the segment above (state 0
+  // for the top one); in rounds, every lane whose entry changed walks
+  // again from it until its state meets the kept path's at the same step
+  // (from there the two paths are one), until no entry changes.
+  unsigned char* path = sm.scratch;                         // nw x 36
+  int* exits = reinterpret_cast<int*>(path + (size_t)nw * 36);
+  int* entry = exits + nw;
+  int* want = entry + nw;
+  for (int w = lane; w < nw; w += 32) {
+    const unsigned long long* seg = sm.words + w * 33;
+    unsigned char* st = path + w * 36;
+    unsigned z = 0u, acc = 0u;
+#pragma unroll 8
+    for (int i = 31; i >= 0; --i) {
+      st[i] = static_cast<unsigned char>(z >> 26);
+      z = trace_step(z, seg[i]);
+      acc = (acc << 1) | (z >> 31);
     }
-    mism = __any_sync(kFull, mism);
-    if (threadIdx.x == 0) merge_ok[frame] = mism ? 0 : 1;
+    sm.out[w] = acc;
+    exits[w] = static_cast<int>(z >> 26);
+    entry[w] = 0;
   }
+  if (lane == 0) sm.out[nw] = 0u;
+  __syncwarp();
+  for (;;) {
+    for (int w = lane; w < nw; w += 32) {
+      want[w] = w + 1 < nw ? exits[w + 1] : 0;
+    }
+    __syncwarp();
+    bool walked = false;
+    for (int w = lane; w < nw; w += 32) {
+      const int e = want[w];
+      if (e == entry[w]) continue;
+      walked = true;
+      entry[w] = e;
+      const unsigned long long* seg = sm.words + w * 33;
+      unsigned char* st = path + w * 36;
+      unsigned z = static_cast<unsigned>(e) << 26;
+      unsigned acc = sm.out[w];
+      int i = 31;
+      for (; i >= 0 && (z >> 26) != st[i]; --i) {
+        st[i] = static_cast<unsigned char>(z >> 26);
+        z = trace_step(z, seg[i]);
+        acc = (acc & ~(1u << i)) | ((z >> 31) << i);
+      }
+      sm.out[w] = acc;
+      if (i < 0) exits[w] = static_cast<int>(z >> 26);
+    }
+    __syncwarp();
+    if (!__any_sync(kFull, walked)) break;
+  }
+
+  // the window's span of the output
+  const int n_lo = blk * tb;
+  const int n_hi = min(n_lo + tb, nbits);
+  const int lead = blk > 0 ? wf - n_lo : -n_lo;
+  int* row = bits + (size_t)frame * nbits;
+  for (int n = n_lo + lane; n < n_hi; n += 32) {
+    const int m = n + lead;
+    row[n] = static_cast<int>((sm.out[m >> 5] >> (m & 31)) & 1u);
+  }
+  // the overlap regions of cuts blk and blk + 1
+  unsigned* head = overlaps + (size_t)b * 2 * ovw;
+  unsigned* tail = head + ovw;
+  const int p = (blk + 1) * tb - wf - off;
+  for (int k = lane; k < ovw; k += 32) {
+    const unsigned keep = bit_range(0, ov - 32 * k);
+    head[k] = blk > 0 ? sm.out[k] & keep : 0u;
+    unsigned t = 0u;
+    if (blk < n_blocks - 1) {
+      const int q = (p >> 5) + k;
+      t = __funnelshift_r(sm.out[q], sm.out[q + 1], p & 31) & keep;
+    }
+    tail[k] = t;
+  }
+}
+
+// The merge guard, one warp per frame, a lane per cut b (1 <= b <
+// n_blocks): window b - 1's tail words XOR window b's head words, kept to
+// the region bits i with trim <= i < ov - trim whose trellis bit
+// b * tb - wf + i lies below the frame's live extent min(max(min(steps,
+// T) - 6, 0), nbits); any bit left clears the frame's flag.
+__global__ void __launch_bounds__(128)
+blocked_guard_kernel(const unsigned* __restrict__ overlaps,
+                     const int* __restrict__ steps, bool* __restrict__ ok,
+                     int frames, int total, int n_blocks, int nbits, int tb,
+                     int wf, int ov, int ovw, int trim) {
+  const int frame = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (frame >= frames) return;  // the whole warp
+  const int live_hi =
+      min(max(min(max(steps[frame], 0), total) - kTail, 0), nbits);
+  unsigned mism = 0u;
+  for (int c = 1 + lane; c < n_blocks; c += 32) {
+    const size_t cut = (size_t)frame * n_blocks + c;
+    const unsigned* prev = overlaps + ((cut - 1) * 2 + 1) * ovw;
+    const unsigned* cur = overlaps + cut * 2 * ovw;
+    const int end = min(ov - trim, live_hi - (c * tb - wf));
+    for (int k = 0; k < ovw; ++k) {
+      mism |= (prev[k] ^ cur[k]) & bit_range(trim - 32 * k, end - 32 * k);
+    }
+  }
+  const bool any = __any_sync(kFull, mism != 0u);
+  if (lane == 0) ok[frame] = !any;
 }
 
 }  // namespace
@@ -607,28 +777,40 @@ int viterbi_chainback(const unsigned long long* dec, int* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// soft: (frames, soft_stride) int32; steps: (frames,) int32;
-// dec: (win + 6, frames * n_blocks) uint64.
-int viterbi_acs_windowed(const int* soft, const int* steps,
-                         unsigned long long* dec, int lanes, int soft_stride,
-                         int n_blocks, int tb, int wf, int win, void* stream) {
-  if (lanes > 0) {
-    acs_windowed_kernel<<<lanes, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        soft, steps, dec, lanes, soft_stride, n_blocks, tb, wf, win);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The window kernel's dynamic shared memory in bytes, for a window of win
+// steps.
+int viterbi_blocked_smem(int win) {
+  return WindowSmem::bytes((win + 31) / 32);
 }
 
-// win_bits: (win, frames * n_blocks) int32; steps: (frames,) int32;
-// bits: (frames, nbits) int32; merge_ok: (frames,) int32.
-int viterbi_splice_guard(const int* win_bits, const int* steps, int* bits,
-                         int* merge_ok, int frames, int n_blocks, int nbits,
-                         int tb, int wf, int ov, int trim, void* stream) {
-  if (frames > 0) {
-    splice_guard_kernel<<<frames, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        win_bits, steps, bits, merge_ok, frames * n_blocks, n_blocks, nbits,
-        tb, wf, ov, trim);
+// The block-overlap decode: soft: (frames, soft_stride) int32, 8-byte
+// aligned; steps: (frames,) int32; bits: (frames, nbits) int32; ok:
+// (frames,) bool; overlaps: (frames * n_blocks, 2, ovw) 32-bit words,
+// ovw = ceil(ov / 32). Launches blocked_window_kernel, then
+// blocked_guard_kernel, on one stream.
+int viterbi_blocked_decode(const int* soft, const int* steps, int* bits,
+                           bool* ok, unsigned* overlaps, int frames,
+                           int soft_stride, int n_blocks, int nbits, int tb,
+                           int wf, int win, int ov, int trim, void* stream) {
+  if (frames <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nw = (win + 31) / 32;
+  const int ovw = (ov + 31) / 32;
+  const int smem = WindowSmem::bytes(nw);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        blocked_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  blocked_window_kernel<<<frames * n_blocks, 32, smem, st>>>(
+      soft, steps, bits, overlaps, soft_stride, n_blocks, nbits, tb, wf, win,
+      ov, ovw);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  blocked_guard_kernel<<<(frames + 3) / 4, 128, 0, st>>>(
+      overlaps, steps, ok, frames, soft_stride / 2, n_blocks, nbits, tb, wf,
+      ov, ovw, trim);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,9 +2,9 @@
 
 The kernels replace the Pallas kernels of fun_ofdm_tpu/ops/viterbi_pallas.py:
 forward ACS and survivor chainback (radix 4 and radix 2), and the
-block-overlap decode `_blocked_decode_impl` (a windowed ACS, the same
-chainback, and a splice + merge-guard kernel), and the ACS ablation
-variants of tools/viterbi_acs_ab.py (`acs_ablate`). The source is
+block-overlap decode `_blocked_decode_impl` (`blocked_decode`: a window
+kernel and a merge-guard kernel behind one C entry point), and the ACS
+ablation variants of tools/viterbi_acs_ab.py (`acs_ablate`). The source is
 compiled with nvcc for sm_90a into a shared library with a plain C
 interface, at first use, into csrc/build/ (keyed by a hash of the source
 and flags); importing this module builds nothing. Each wrapper checks its
@@ -26,14 +26,24 @@ top of csrc/viterbi.cu has the detail):
     segment, words staged in shared memory), their composition from
     state 0, and a walk of every segment from its start state, in
     parallel over (segment, 16-frame group); exact, with no assumption
-    that the survivor paths merge.
+    that the survivor paths merge;
+  * blocked_decode: the serial step chain of one window (~1,012 steps at
+    the capture's geometry), which is the decode's latency at the
+    streaming chain's small buckets; one warp per (frame, block) window
+    runs the same ACS step with its decisions in shared memory, traces
+    the window back on chip (each lane a 32-step segment, walked from
+    state 0, then corrected from its true entry, the exit of the segment
+    above, only until the paths meet: exact, a serial walk at worst) and
+    writes its own span of the output and its overlap words;
+    a second kernel, a warp per frame, runs the merge guard on the
+    packed overlap words. Survivors and window bits stay on chip.
 
 The plain versions are ops/viterbi.acs_plain and ops/viterbi.chainback_plain
 (the kernels' own algebra: ops/viterbi.acs_early_plain and
 ops/viterbi.chainback_segmented_plain, used by the tests), for the
-block-overlap pair ops/viterbi_blocked.acs_windowed_plain and
-ops/viterbi_blocked.splice_guard_plain, and for the ablation variants
-ops/viterbi_ab.acs_ablate_plain.
+block-overlap decode ops/viterbi_blocked.decode_plain (the two kernels'
+own algebra: ops/viterbi_blocked.decode_words_plain, used by the tests),
+and for the ablation variants ops/viterbi_ab.acs_ablate_plain.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ from pathlib import Path
 
 import torch
 
+from . import viterbi_blocked
+
 K = 7
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "viterbi.cu"
 BUILD_DIR = SOURCE.parent / "build"
@@ -56,8 +68,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches since the last reset_launches(), by kernel name
 launches = {"viterbi_acs": 0, "viterbi_chainback": 0,
-            "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0,
-            "viterbi_acs_ablate": 0}
+            "viterbi_blocked_decode": 0, "viterbi_acs_ablate": 0}
 
 #: the ACS ablation variants, in csrc/viterbi.cu's AcsMode order
 ABLATE_MODES = ("full", "norenorm", "noshuffle", "nostore", "minimal",
@@ -114,12 +125,12 @@ def build() -> ctypes.CDLL:
     lib.viterbi_chainback.restype = cint
     lib.viterbi_chainback_segment.argtypes = []
     lib.viterbi_chainback_segment.restype = cint
-    lib.viterbi_acs_windowed.argtypes = [ptr, ptr, ptr, cint, cint, cint,
-                                         cint, cint, cint, ptr]
-    lib.viterbi_acs_windowed.restype = cint
-    lib.viterbi_splice_guard.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint,
-                                         cint, cint, cint, cint, ptr]
-    lib.viterbi_splice_guard.restype = cint
+    lib.viterbi_blocked_decode.argtypes = [ptr, ptr, ptr, ptr, ptr, cint,
+                                           cint, cint, cint, cint, cint,
+                                           cint, cint, cint, ptr]
+    lib.viterbi_blocked_decode.restype = cint
+    lib.viterbi_blocked_smem.argtypes = [cint]
+    lib.viterbi_blocked_smem.restype = cint
     lib.viterbi_acs_ablate.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint,
                                        cint, cint, ptr]
     lib.viterbi_acs_ablate.restype = cint
@@ -231,19 +242,20 @@ def decode(soft: torch.Tensor, steps: torch.Tensor, init: torch.Tensor,
     return chainback(acs(soft, steps, init), nbits)
 
 
-def acs_windowed(soft: torch.Tensor, steps: torch.Tensor, n_blocks: int,
-                 tb: int, wf: int, win: int) -> torch.Tensor:
-    """Forward ACS of every (frame, block) window on the card.
+def blocked_decode(soft: torch.Tensor, steps: torch.Tensor, geo):
+    """The block-overlap decode on the card: one call, two kernels.
 
-    soft: (F, 2T) int32 soft pairs, 8-byte aligned; steps: (F,) int32
-    per-frame even step counts <= T. Lane b = f * n_blocks + blk runs
-    window blk of frame f: from trellis step max(0, blk * tb - wf), for
-    min(max(steps[f] - that, 0), win) steps, exact init for blk 0 and
-    uniform for the others. Returns (win + 6, F * n_blocks) int64
-    decision words, zero past each lane's count.
+    soft: (F, 2 * (nbits + 6)) int32 soft pairs, 8-byte aligned; steps:
+    (F,) int32 per-frame step counts (the kernel clamps them to
+    0..nbits + 6); geo: the ops/viterbi_blocked.Geometry of the decode.
+    Returns ((F, nbits) int32 bits, (F,) bool merge flags, (F * n_blocks,
+    2, ceil(ov / 32)) int32 overlap words: per window, the packed bits of
+    its cut regions, as ops/viterbi_blocked.pack_overlaps_plain defines
+    them). Counts one launch of viterbi_blocked_decode.
     """
-    if soft.dim() != 2 or soft.shape[1] % 2:
-        raise ValueError(f"soft must be (F, 2T), got {tuple(soft.shape)}")
+    if soft.dim() != 2 or soft.shape[1] != 2 * (geo.nbits + K - 1):
+        raise ValueError(f"soft must be (F, {2 * (geo.nbits + K - 1)}), got "
+                         f"{tuple(soft.shape)}")
     frames, width = soft.shape
     _check(soft, "soft", torch.int32, (frames, width))
     _check(steps, "steps", torch.int32, (frames,))
@@ -251,62 +263,30 @@ def acs_windowed(soft: torch.Tensor, steps: torch.Tensor, n_blocks: int,
         raise ValueError("soft and steps must be on one device")
     if soft.data_ptr() % 8:
         raise ValueError("soft must be 8-byte aligned")
-    if n_blocks < 1 or min(tb, wf, win) < 0:
-        raise ValueError("n_blocks must be >= 1 and tb, wf, win >= 0")
-    # a count past the trellis would read past the row
-    steps = torch.clamp(steps, 0, width // 2)
-    lanes = frames * n_blocks
-    dec = torch.empty((win + K - 1, lanes), dtype=torch.int64,
-                      device=soft.device)
-    if lanes == 0:
-        return dec
-    lib = build()
-    with torch.cuda.device(soft.device):
-        err = lib.viterbi_acs_windowed(soft.data_ptr(), steps.data_ptr(),
-                                       dec.data_ptr(), lanes, width, n_blocks,
-                                       tb, wf, win, _stream(soft.device))
-    launches["viterbi_acs_windowed"] += 1
-    if err:
-        raise RuntimeError(
-            f"viterbi_acs_windowed launch failed: CUDA error {err}")
-    return dec
-
-
-def splice_guard(win_bits: torch.Tensor, steps: torch.Tensor, nbits: int,
-                 n_blocks: int, tb: int, wf: int, ov: int, trim: int):
-    """Splice the windows' bits into frames and run the merge guard.
-
-    win_bits: (win, F * n_blocks) int32, the chainback's output layout;
-    steps: (F,) int32 per-frame step counts. Returns ((F, nbits) int32
-    bits, (F,) bool merge flags).
-    """
-    lanes = win_bits.shape[1] if win_bits.dim() == 2 else -1
-    frames = steps.shape[0] if steps.dim() == 1 else -1
-    if lanes != frames * n_blocks:
-        raise ValueError(f"win_bits must be (win, {frames} * {n_blocks}), "
-                         f"got {tuple(win_bits.shape)}")
-    _check(win_bits, "win_bits", torch.int32, tuple(win_bits.shape))
-    _check(steps, "steps", torch.int32, (frames,))
-    if steps.device != win_bits.device:
-        raise ValueError("win_bits and steps must be on one device")
-    if tb * n_blocks < nbits or win_bits.shape[0] < tb + ov or tb < wf:
-        raise ValueError("the block geometry does not cover the splice")
-    bits = torch.empty((frames, nbits), dtype=torch.int32,
-                       device=win_bits.device)
-    ok = torch.empty((frames,), dtype=torch.int32, device=win_bits.device)
+    if geo.n_blocks < 1 or geo.tb * geo.n_blocks < geo.nbits or (
+            geo.n_blocks > 1 and geo.tb < geo.wf):
+        raise ValueError(f"the block geometry does not cover the frame: "
+                         f"{geo}")
+    dev = soft.device
+    bits = torch.empty((frames, geo.nbits), dtype=torch.int32, device=dev)
+    ok = torch.empty((frames,), dtype=torch.bool, device=dev)
+    overlaps = torch.empty(
+        (frames * geo.n_blocks, 2, viterbi_blocked.overlap_words(geo)),
+        dtype=torch.int32, device=dev)
     if frames == 0:
-        return bits, ok.bool()
+        return bits, ok, overlaps
     lib = build()
-    with torch.cuda.device(win_bits.device):
-        err = lib.viterbi_splice_guard(
-            win_bits.data_ptr(), steps.data_ptr(), bits.data_ptr(),
-            ok.data_ptr(), frames, n_blocks, nbits, tb, wf, ov, trim,
-            _stream(win_bits.device))
-    launches["viterbi_splice_guard"] += 1
+    with torch.cuda.device(dev):
+        err = lib.viterbi_blocked_decode(
+            soft.data_ptr(), steps.data_ptr(), bits.data_ptr(),
+            ok.data_ptr(), overlaps.data_ptr(), frames, width, geo.n_blocks,
+            geo.nbits, geo.tb, geo.wf, geo.win, geo.ov, geo.trim,
+            _stream(dev))
+    launches["viterbi_blocked_decode"] += 1
     if err:
         raise RuntimeError(
-            f"viterbi_splice_guard launch failed: CUDA error {err}")
-    return bits, ok.bool()
+            f"viterbi_blocked_decode launch failed: CUDA error {err}")
+    return bits, ok, overlaps
 
 
 def acs_ablate(soft: torch.Tensor, steps: torch.Tensor, init: torch.Tensor,

@@ -132,8 +132,7 @@ def test_capture_on_card_matches_cpu(cuda_device):
     # one header and one payload launch of the exact pair, no blocked one
     assert {k: viterbi_cuda.launches[k] - before[k] for k in before} == {
         "viterbi_acs": 2, "viterbi_chainback": 2,
-        "viterbi_acs_windowed": 0, "viterbi_splice_guard": 0,
-        "viterbi_acs_ablate": 0}
+        "viterbi_blocked_decode": 0, "viterbi_acs_ablate": 0}
     for key in ("starts", "valid", "crc_ok", "header_ok"):
         assert torch.equal(got[key].cpu(), want[key]), key
     valid = want["valid"]
@@ -141,29 +140,51 @@ def test_capture_on_card_matches_cpu(cuda_device):
     assert int(want["crc_ok"].sum()) == 6
 
 
-@pytest.mark.parametrize("frames,nbits,warmup", [(4, 12090, 128),
-                                                 (8, 1200, 2),
-                                                 (64, 16194, 128),
-                                                 (16, 16074, 128)])
-def test_blocked_kernels_match_plain(cuda_device, frames, nbits, warmup):
+@pytest.mark.parametrize("frames,nbits,n_blocks,warmup,kind", [
+    (4, 12090, 16, 128, "mixed"), (16, 12090, 16, 128, "mixed"),
+    (64, 12090, 16, 128, "mixed"), (8, 1200, 16, 2, "mixed"),
+    (64, 16194, 16, 128, "mixed"), (16, 16074, 16, 128, "mixed"),
+    (16, 12090, 16, 128, "zero"), (16, 12090, 16, 128, "noinfo"),
+    (4, 210, 16, 128, "mixed"), (4, 12090, 2, 128, "mixed")])
+def test_blocked_kernels_match_plain(cuda_device, frames, nbits, n_blocks,
+                                     warmup, kind):
     """The block-overlap decode through its kernels equals its plain
     version on the same card: bits and merge flags, mixed lengths (and,
-    at warm-up 2, forced splice failures); the last two are the windows
-    of an all-rates chain at max_length 2000."""
-    rng = np.random.default_rng(frames)
-    soft = _noisy_soft(rng, frames, nbits).to(cuda_device)
-    nbd = torch.from_numpy(rng.integers(nbits // 2, nbits + 1, frames))
+    at warm-up 2, forced splice failures), every frame of length 0, and
+    uniform soft pairs that carry no information (survivor paths meet
+    late, so the traceback's corrections take several rounds); the overlap
+    words equal their plain form. 4, 16 and 64 frames of 12,090 bits are
+    the streaming chain's small buckets at 1500 bytes; 16,194 and 16,074
+    bits the windows of an all-rates chain at max_length 2000; 210 bits
+    (one 54 Mbit/s symbol) one block whose span is shorter than its
+    lead-in; 2 blocks of 12,090 bits a window of 6,304 steps, whose
+    shared memory (62 KB) is past the 48 KB default. One call is one
+    launch of viterbi_blocked_decode."""
+    rng = np.random.default_rng(frames + nbits)
+    soft = _noisy_soft(rng, frames, nbits)
+    if kind == "noinfo":
+        soft = torch.from_numpy(rng.integers(0, 256, tuple(soft.shape),
+                                             dtype=np.int32))
+    soft = soft.to(cuda_device)
+    nbd = {"mixed": torch.from_numpy(rng.integers(nbits // 2, nbits + 1,
+                                                  frames)),
+           "zero": torch.zeros(frames, dtype=torch.int64),
+           "noinfo": None}[kind]
     steps = viterbi.step_counts(nbits, nbd, (frames,), cuda_device)
-    geo = viterbi_blocked.geometry(nbits, 16, warmup)
+    geo = viterbi_blocked.geometry(nbits, n_blocks, warmup)
     before = dict(viterbi_cuda.launches)
-    bits, ok = viterbi_blocked.decode_cuda(soft.contiguous(), steps, geo)
-    assert viterbi_cuda.launches["viterbi_acs_windowed"] == \
-        before["viterbi_acs_windowed"] + 1
-    assert viterbi_cuda.launches["viterbi_splice_guard"] == \
-        before["viterbi_splice_guard"] + 1
+    bits, ok, overlaps = viterbi_cuda.blocked_decode(soft.contiguous(), steps,
+                                                     geo)
+    assert {k: viterbi_cuda.launches[k] - before[k] for k in before} == {
+        "viterbi_acs": 0, "viterbi_chainback": 0,
+        "viterbi_blocked_decode": 1, "viterbi_acs_ablate": 0}
     want_bits, want_ok = viterbi_blocked.decode_plain(soft, steps, geo)
     assert torch.equal(bits.cpu(), want_bits.cpu())
     assert torch.equal(ok.cpu(), want_ok.cpu())
+    _, _, want_overlaps = viterbi_blocked.decode_words_plain(soft, steps, geo)
+    assert torch.equal(overlaps.cpu(), want_overlaps.cpu())
+    if kind == "zero":
+        assert ok.all() and not bits.any()
 
 
 def test_dense_chain_on_card_matches_cpu(cuda_device):
@@ -193,10 +214,10 @@ def test_dense_chain_on_card_matches_cpu(cuda_device):
         return [(p.payload, p.rate, p.start) for p in pkts + c.flush()], c
 
     want, _ = run("cpu")
-    before = viterbi_cuda.launches["viterbi_acs_windowed"]
+    before = viterbi_cuda.launches["viterbi_blocked_decode"]
     got, c = run(cuda_device)
     assert got == want and len(got) == 6
-    assert viterbi_cuda.launches["viterbi_acs_windowed"] > before
+    assert viterbi_cuda.launches["viterbi_blocked_decode"] > before
     assert c.stats.crc_ok == 6
 
 
