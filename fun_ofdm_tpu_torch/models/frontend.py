@@ -17,6 +17,7 @@ import torch
 from ..config import DEFAULT_PARAMS, ChainParams
 from ..ops import correlate
 from ..rates import Rate, params_for
+from ..utils import trace
 from . import ppdu as ppdu_model
 from . import rx as rx_model
 
@@ -169,19 +170,22 @@ def receive_capture(stream: torch.Tensor, rate: Rate, length: int,
     valid, payload (..., max_frames, length), crc_ok, header_ok;
     `valid & crc_ok` marks delivered packets.
     """
-    n = stream.shape[-1]
-    frame_len = params_for(rate).frame_samples(length)
-    starts, valid = detect_frames(stream, max_frames, params)
-    ok = valid & (starts + frame_len <= n)  # decode only frames that fit
-    out = rx_model.decode_frames(stream, rate, length,
-                                 torch.where(ok, starts, 0))
-    return {
-        "starts": starts,
-        "valid": ok,
-        "payload": out["payload"],
-        "crc_ok": out["crc_ok"] & ok,
-        "header_ok": out["header_ok"] & ok,
-    }
+    with trace.span("frontend.receive_capture"):
+        n = stream.shape[-1]
+        frame_len = params_for(rate).frame_samples(length)
+        with trace.span("frontend.detect"):
+            starts, valid = detect_frames(stream, max_frames, params)
+        ok = valid & (starts + frame_len <= n)  # decode only frames that fit
+        with trace.span("rx.decode"):
+            out = rx_model.decode_frames(stream, rate, length,
+                                         torch.where(ok, starts, 0))
+        return {
+            "starts": starts,
+            "valid": ok,
+            "payload": out["payload"],
+            "crc_ok": out["crc_ok"] & ok,
+            "header_ok": out["header_ok"] & ok,
+        }
 
 
 def receive_capture_p(stream, rate: Rate, length: int, max_frames: int,

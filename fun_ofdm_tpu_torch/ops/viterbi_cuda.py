@@ -58,6 +58,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
 from . import viterbi_blocked
 
 K = 7
@@ -239,7 +240,8 @@ def decode(soft: torch.Tensor, steps: torch.Tensor, init: torch.Tensor,
     if soft.dim() != 2 or soft.shape[1] != 2 * (nbits + K - 1):
         raise ValueError(f"soft must be (B, {2 * (nbits + K - 1)}), got "
                          f"{tuple(soft.shape)}")
-    return chainback(acs(soft, steps, init), nbits)
+    with trace.span("viterbi.exact"):
+        return chainback(acs(soft, steps, init), nbits)
 
 
 def blocked_decode(soft: torch.Tensor, steps: torch.Tensor, geo):
@@ -276,7 +278,7 @@ def blocked_decode(soft: torch.Tensor, steps: torch.Tensor, geo):
     if frames == 0:
         return bits, ok, overlaps
     lib = build()
-    with torch.cuda.device(dev):
+    with trace.span("viterbi.blocked"), torch.cuda.device(dev):
         err = lib.viterbi_blocked_decode(
             soft.data_ptr(), steps.data_ptr(), bits.data_ptr(),
             ok.data_ptr(), overlaps.data_ptr(), frames, width, geo.n_blocks,

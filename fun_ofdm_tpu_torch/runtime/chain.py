@@ -58,6 +58,7 @@ from ..config import DEFAULT_PARAMS, ChainParams
 from ..models import frontend, rx
 from ..ops import viterbi_cuda
 from ..rates import ALL_RATES, Rate, params_for
+from ..utils import trace
 from . import native
 from .wire import (  # noqa: F401  (pack10: re-exported for callers)
     INGEST_FORMATS,
@@ -196,9 +197,11 @@ def _build_decode_fn(rate, bucket: int, max_length: int, impl: str,
 class _Fetch:
     """A device result on its way to the host: a non-blocking copy into
     pinned memory and a CUDA event recorded after it. A CPU tensor is
-    simply held."""
+    simply held. `id`: the trace id of the wait in numpy() (None: the
+    enclosing span's)."""
 
-    def __init__(self, x: torch.Tensor):
+    def __init__(self, x: torch.Tensor, id: int | None = None):
+        self.id = id
         if x.is_cuda:
             self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             self._host.copy_(x, non_blocking=True)
@@ -211,9 +214,10 @@ class _Fetch:
         return self._event is None or self._event.query()
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        with trace.span("chain.wait", self.id):
+            if self._event is not None:
+                self._event.synchronize()
+            return self._host.numpy()
 
 
 @dataclass(frozen=True)
@@ -257,9 +261,6 @@ class ChainStats:
     #: frames re-decoded exactly because the block-overlap Viterbi's merge
     #: guard flagged them
     viterbi_fallbacks: int = 0
-    #: host wall time spent waiting on results per stage (not device time)
-    time_headers_s: float = 0.0
-    time_decode_s: float = 0.0
 
     def as_dict(self) -> dict:
         return dict(self.__dict__)
@@ -492,6 +493,10 @@ class ReceiverChain:
         rechunked. Packets may come back on a later call than the one
         that completed them; flush() drains everything.
         """
+        with trace.span("chain.process_samples"):
+            return self._process_samples(samples)
+
+    def _process_samples(self, samples) -> list[DecodedPacket]:
         if self.channels > 1 or self.adaptive:
             return self._process_pending(samples)
         if isinstance(samples, tuple):
@@ -536,12 +541,13 @@ class ReceiverChain:
                            _dequantize_wire(np.asarray(samples[1])))
         else:
             n = np.asarray(samples).size
-        self._rechunk.push(samples)
-        self.stats.samples_in += n
-        self._t_real += n
-        while self._rechunk.ready():
-            chunk = self._rechunk.pop()
-            self._ingest(chunk[0], chunk[1])
+        with trace.span("native.chunk"):
+            self._rechunk.push(samples)
+            self.stats.samples_in += n
+            self._t_real += n
+            while self._rechunk.ready():
+                chunk = self._rechunk.pop()
+                self._ingest(chunk[0], chunk[1])
         return self._drain(force=False)
 
     def _process_pending(self, samples) -> list[DecodedPacket]:
@@ -616,6 +622,10 @@ class ReceiverChain:
         stride at a time. terminal=False also resets the window and the
         stream position, so the same chain serves a next stream whose
         packet starts count from 0 again; stats stay cumulative."""
+        with trace.span("chain.flush"):
+            return self._flush(terminal)
+
+    def _flush(self, terminal: bool) -> list[DecodedPacket]:
         if self._t_real == 0:
             return []
         if self._rechunk is not None:
@@ -652,51 +662,60 @@ class ReceiverChain:
         """Ship one dispatch of samples (a superstep, or a ladder rung) to
         the device, roll it into the window and queue the detection +
         header pass over the samples it owns."""
-        if self._dev_win is None:
-            shape = (self.window,) if self.channels == 1 \
-                else (self.channels, self.window)
-            z = torch.zeros(shape, dtype=torch.float32, device=self.device)
-            self._dev_win = (z, z)
-        dtype, scale = INGEST_FORMATS[self.ingest_dtype]
-        if self.ingest_dtype in PACKED_FORMATS:
-            if c_re.dtype != np.uint8:
-                c_re = _pack_np(c_re, self.ingest_dtype, scale)
-                c_im = _pack_np(c_im, self.ingest_dtype, scale)
-        elif self.ingest_dtype != "float32" and c_re.dtype != dtype:
-            lim = float(np.iinfo(dtype).max)
-            c_re = np.clip(np.rint(c_re * scale), -lim, lim).astype(dtype)
-            c_im = np.clip(np.rint(c_im * scale), -lim, lim).astype(dtype)
-        elif self.ingest_dtype == "float32":
-            c_re = np.asarray(c_re, np.float32)
-            c_im = np.asarray(c_im, np.float32)
-        cr, ci = (_to_float(torch.from_numpy(np.ascontiguousarray(c)).to(
-            self.device, non_blocking=True), self.ingest_dtype, scale)
-            for c in (c_re, c_im))
-        k = cr.shape[-1]
-        wr, wi = (torch.cat([w[..., k:], c], dim=-1)
-                  for w, c in zip(self._dev_win, (cr, ci)))
-        self._dev_win = (wr, wi)
         # this dispatch owns the k samples lagging ingestion by `halo`
         # (they tile the stream for any sequence of dispatch sizes)
         gpos = self._s_total - self.halo
-        self._s_total += k
-        if gpos + k <= 0:
-            return  # warm-up: owned region entirely before the stream
-        cap = self._capacity(k)
-        hdr = _headers_block(wr, wi, self.window - self.halo - k, k, cap,
-                             self._header_slots(cap), self.params,
-                             self.cfo_correct)
-        self.stats.windows += 1
-        self._hdr_q.append((gpos, k, self._dev_win, _Fetch(hdr)))
+        with trace.span("chain.ingest", gpos):
+            if self._dev_win is None:
+                shape = (self.window,) if self.channels == 1 \
+                    else (self.channels, self.window)
+                z = torch.zeros(shape, dtype=torch.float32,
+                                device=self.device)
+                self._dev_win = (z, z)
+            dtype, scale = INGEST_FORMATS[self.ingest_dtype]
+            with trace.span("wire.pack"):
+                if self.ingest_dtype in PACKED_FORMATS:
+                    if c_re.dtype != np.uint8:
+                        c_re = _pack_np(c_re, self.ingest_dtype, scale)
+                        c_im = _pack_np(c_im, self.ingest_dtype, scale)
+                elif self.ingest_dtype != "float32" and c_re.dtype != dtype:
+                    lim = float(np.iinfo(dtype).max)
+                    c_re = np.clip(np.rint(c_re * scale), -lim,
+                                   lim).astype(dtype)
+                    c_im = np.clip(np.rint(c_im * scale), -lim,
+                                   lim).astype(dtype)
+                elif self.ingest_dtype == "float32":
+                    c_re = np.asarray(c_re, np.float32)
+                    c_im = np.asarray(c_im, np.float32)
+            with trace.span("chain.h2d"):
+                cr, ci = (_to_float(torch.from_numpy(
+                    np.ascontiguousarray(c)).to(self.device,
+                                                non_blocking=True),
+                    self.ingest_dtype, scale) for c in (c_re, c_im))
+                k = cr.shape[-1]
+                wr, wi = (torch.cat([w[..., k:], c], dim=-1)
+                          for w, c in zip(self._dev_win, (cr, ci)))
+                self._dev_win = (wr, wi)
+            self._s_total += k
+            if gpos + k <= 0:
+                return  # warm-up: owned region entirely before the stream
+            cap = self._capacity(k)
+            with trace.span("frontend.decode_headers"):
+                hdr = _Fetch(_headers_block(
+                    wr, wi, self.window - self.halo - k, k, cap,
+                    self._header_slots(cap), self.params, self.cfo_correct),
+                    gpos)
+            self.stats.windows += 1
+            self._hdr_q.append((gpos, k, self._dev_win, hdr))
 
-    def _dispatch_one(self, win, off, rate, chs, local_starts,
+    def _dispatch_one(self, gpos, win, off, rate, chs, local_starts,
                       jobs) -> None:
         """Queue decode jobs for (channel, start) pairs of all channels,
         padded to a bucket with copies of the first start (their rows are
         dropped on the host); more than the largest bucket splits. A start
         counts from the owned region, which begins at window index `off`;
         the channel folds in too (ch * window + off + start) to index the
-        flattened window."""
+        flattened window. gpos: the dispatch's stream position."""
         flat = chs.astype(np.int64) * self.window + off + local_starts
         for lo in range(0, flat.size, DECODE_BUCKETS[-1]):
             part = slice(lo, lo + DECODE_BUCKETS[-1])
@@ -704,12 +723,13 @@ class ReceiverChain:
             bucket = next(b for b in DECODE_BUCKETS if b >= fpart.size)
             padded = np.full(bucket, fpart[0], np.int64)
             padded[:fpart.size] = fpart
-            out = self._decode_fn(rate, bucket)(
-                win[0], win[1], torch.from_numpy(padded).to(self.device))
-            jobs.append((rate, chs[part], local_starts[part], fpart.copy(),
-                         _Fetch(out)))
+            with trace.span("rx.decode", gpos):
+                out = self._decode_fn(rate, bucket)(
+                    win[0], win[1], torch.from_numpy(padded).to(self.device))
+                jobs.append((rate, chs[part], local_starts[part],
+                             fpart.copy(), _Fetch(out, gpos)))
 
-    def _dispatch_decodes(self, win, off, chs, starts, fields,
+    def _dispatch_decodes(self, gpos, win, off, chs, starts, fields,
                           jobs) -> None:
         """Queue the payload decodes of one superstep's owned frames (all
         channels together): one job per length class in universal mode,
@@ -719,12 +739,12 @@ class ReceiverChain:
                 sel = np.array([self._field_class.get(int(f)) == ci
                                 for f in fields])
                 if sel.any():
-                    self._dispatch_one(win, off, cls, chs[sel],
+                    self._dispatch_one(gpos, win, off, cls, chs[sel],
                                        starts[sel], jobs)
         else:
             for field_val in np.unique(fields):
                 sel = fields == field_val
-                self._dispatch_one(win, off,
+                self._dispatch_one(gpos, win, off,
                                    self._valid_fields[int(field_val)],
                                    chs[sel], starts[sel], jobs)
 
@@ -734,55 +754,55 @@ class ReceiverChain:
         (n, max_length + 5) uint8 rows as the primary decode."""
         row = self.max_length + 5
         outs = []
-        for lo in range(0, flat_bad.size, DECODE_BUCKETS[-1]):
-            part = flat_bad[lo:lo + DECODE_BUCKETS[-1]]
-            bucket = next(b for b in DECODE_BUCKETS if b >= part.size)
-            padded = np.full(bucket, part[0], np.int64)
-            padded[:part.size] = part
-            out = self._decode_fn(rate, bucket, exact=True)(
-                win[0], win[1], torch.from_numpy(padded).to(self.device))
-            outs.append(_Fetch(out).numpy()[:part.size].reshape(-1, row))
+        with trace.span("viterbi.redecode_exact"):
+            for lo in range(0, flat_bad.size, DECODE_BUCKETS[-1]):
+                part = flat_bad[lo:lo + DECODE_BUCKETS[-1]]
+                bucket = next(b for b in DECODE_BUCKETS if b >= part.size)
+                padded = np.full(bucket, part[0], np.int64)
+                padded[:part.size] = part
+                out = self._decode_fn(rate, bucket, exact=True)(
+                    win[0], win[1], torch.from_numpy(padded).to(self.device))
+                outs.append(_Fetch(out).numpy()[:part.size].reshape(-1, row))
         return np.concatenate(outs)
 
     def _collect_decodes(self, gpos, win, jobs) -> list[DecodedPacket]:
         """Sync one superstep's decode jobs into DecodedPackets."""
-        wpkts: list[DecodedPacket] = []
-        t1 = time.perf_counter()
-        for rate, chs, starts, flat, out in jobs:
-            packed = out.numpy()[:chs.size]
-            exact = packed[:, self.max_length + 3].astype(bool)
-            bad = np.nonzero(~exact)[0]
-            if bad.size:
-                # the block-overlap merge guard tripped: restore exactness
-                self.stats.viterbi_fallbacks += int(bad.size)
-                packed = packed.copy()
-                packed[bad] = self._redecode_exact(win, rate, flat[bad])
-            payloads = packed[:, :self.max_length]
-            crc_ok = packed[:, self.max_length].astype(bool)
-            hdr_len = (packed[:, self.max_length + 1].astype(np.int32)
-                       | (packed[:, self.max_length + 2]
-                          .astype(np.int32) << 8))
-            rfield = packed[:, self.max_length + 4]
-            for k in range(chs.size):
-                if not crc_ok[k]:
-                    # reference: report + drop, keep streaming
-                    self.stats.crc_fail += 1
-                    if self.verbose:
-                        print(f"Invalid CRC (length {int(hdr_len[k])})",
-                              file=sys.stderr)
-                    continue
-                self.stats.crc_ok += 1
-                n = int(hdr_len[k])
-                wpkts.append(DecodedPacket(
-                    payload=payloads[k, :n].tobytes(),
-                    rate=(rate if isinstance(rate, Rate)
-                          else self._valid_fields[int(rfield[k])]),
-                    length=n,
-                    start=gpos + int(starts[k]),
-                    channel=int(chs[k])))
-        self.stats.time_decode_s += time.perf_counter() - t1
-        wpkts.sort(key=lambda p: (p.start, p.channel))
-        return wpkts
+        with trace.span("chain.collect", gpos):
+            wpkts: list[DecodedPacket] = []
+            for rate, chs, starts, flat, out in jobs:
+                packed = out.numpy()[:chs.size]
+                exact = packed[:, self.max_length + 3].astype(bool)
+                bad = np.nonzero(~exact)[0]
+                if bad.size:
+                    # the block-overlap merge guard tripped: restore exactness
+                    self.stats.viterbi_fallbacks += int(bad.size)
+                    packed = packed.copy()
+                    packed[bad] = self._redecode_exact(win, rate, flat[bad])
+                payloads = packed[:, :self.max_length]
+                crc_ok = packed[:, self.max_length].astype(bool)
+                hdr_len = (packed[:, self.max_length + 1].astype(np.int32)
+                           | (packed[:, self.max_length + 2]
+                              .astype(np.int32) << 8))
+                rfield = packed[:, self.max_length + 4]
+                for k in range(chs.size):
+                    if not crc_ok[k]:
+                        # reference: report + drop, keep streaming
+                        self.stats.crc_fail += 1
+                        if self.verbose:
+                            print(f"Invalid CRC (length {int(hdr_len[k])})",
+                                  file=sys.stderr)
+                        continue
+                    self.stats.crc_ok += 1
+                    n = int(hdr_len[k])
+                    wpkts.append(DecodedPacket(
+                        payload=payloads[k, :n].tobytes(),
+                        rate=(rate if isinstance(rate, Rate)
+                              else self._valid_fields[int(rfield[k])]),
+                        length=n,
+                        start=gpos + int(starts[k]),
+                        channel=int(chs[k])))
+            wpkts.sort(key=lambda p: (p.start, p.channel))
+            return wpkts
 
     def _drain(self, force: bool) -> list[DecodedPacket]:
         """Sync finished stages past the pipeline depth; return packets.
@@ -790,85 +810,86 @@ class ReceiverChain:
         Each stage keeps up to pipeline_depth supersteps in flight; a
         result is synced when its queue is deeper than that or when its
         copy has already arrived."""
-        keep = 0 if force else self.pipeline_depth
-        while self._hdr_q and (len(self._hdr_q) > keep
-                               or self._hdr_q[0][3].ready()):
-            gpos, step_k, win, hdr = self._hdr_q.popleft()
-            # each dispatch's own size, capacity and header budget
-            off = self.window - self.halo - step_k
-            cap = self._capacity(step_k)
-            n_hdr = self._header_slots(cap)
-            t0 = time.perf_counter()
-            hs = hdr.numpy().reshape(self.channels, _HDR_ROWS, n_hdr)
-            if n_hdr < cap and int(hs[:, 5, 1].max()) > n_hdr:
-                # more detections than the header budget: re-run the
-                # full-capacity pass on the (unchanged) window
-                self.stats.header_overflows += 1
-                full = _headers_block(win[0], win[1], off, step_k, cap, cap,
-                                      self.params, self.cfo_correct)
-                hs = _Fetch(full).numpy().reshape(self.channels, _HDR_ROWS,
-                                                  cap)
-            self.stats.time_headers_s += time.perf_counter() - t0
-            jobs: list = []
-            sel_chs, sel_starts, sel_fields = [], [], []
-            for ch in range(self.channels):
-                starts, valid, fields, lengths, header_ok = hs[ch, :5]
-                header_ok = header_ok.astype(bool)
-                dropped = int(hs[ch, 5, 0])
-                if dropped:
-                    self.stats.detect_dropped += dropped
-                    if self.verbose:
-                        print(f"Detection events dropped ({dropped})",
-                              file=sys.stderr)
-                if int(hs[ch, 5, 1]) >= cap:
-                    # every slot of the full capacity filled: frames past
-                    # it were missed
-                    self.stats.detect_saturated += 1
-                    if self.verbose:
-                        print(f"Detection saturated ({cap} slots)",
-                              file=sys.stderr)
-                owned = header_ok & (starts >= 0) & (starts < step_k) \
-                    & (gpos + starts >= 0)
-                if owned.any():
-                    # equal starts (a noise-fragmented plateau resolving
-                    # to one LTS pair twice) decode once
-                    ow = np.nonzero(owned)[0]
-                    _, first = np.unique(starts[ow], return_index=True)
-                    if first.size != ow.size:
-                        self.stats.dup_starts += ow.size - first.size
-                        dup = np.ones(ow.size, bool)
-                        dup[first] = False
-                        owned[ow[dup]] = False
-                if not owned.any():
-                    continue
-                self.stats.headers_ok += int(owned.sum())
-                known = np.isin(fields, list(self._valid_fields)) & owned
-                self.stats.unknown_rate += int((owned & ~known).sum())
-                over = known & (lengths > self.max_length)
-                self.stats.length_overflow += int(over.sum())
-                sel = known & (lengths <= self.max_length)
-                if sel.any():
-                    idx = np.nonzero(sel)[0]
-                    sel_chs.append(np.full(idx.size, ch, np.int32))
-                    sel_starts.append(starts[idx].astype(np.int32))
-                    sel_fields.append(fields[idx])
-            if sel_chs:
-                # the owned region starts at window index `off` (0 for a
-                # superstep)
-                self._dispatch_decodes(
-                    win, off, np.concatenate(sel_chs),
-                    np.concatenate(sel_starts), np.concatenate(sel_fields),
-                    jobs)
-            if jobs:
-                self._dec_q.append((gpos, win, jobs))
+        with trace.span("chain.drain"):
+            keep = 0 if force else self.pipeline_depth
+            while self._hdr_q and (len(self._hdr_q) > keep
+                                   or self._hdr_q[0][3].ready()):
+                gpos, step_k, win, hdr = self._hdr_q.popleft()
+                # each dispatch's own size, capacity and header budget
+                off = self.window - self.halo - step_k
+                cap = self._capacity(step_k)
+                n_hdr = self._header_slots(cap)
+                hs = hdr.numpy().reshape(self.channels, _HDR_ROWS, n_hdr)
+                if n_hdr < cap and int(hs[:, 5, 1].max()) > n_hdr:
+                    # more detections than the header budget: re-run the
+                    # full-capacity pass on the (unchanged) window
+                    self.stats.header_overflows += 1
+                    with trace.span("chain.header_overflow", gpos):
+                        full = _headers_block(
+                            win[0], win[1], off, step_k, cap, cap,
+                            self.params, self.cfo_correct)
+                        hs = _Fetch(full).numpy().reshape(self.channels,
+                                                          _HDR_ROWS, cap)
+                jobs: list = []
+                sel_chs, sel_starts, sel_fields = [], [], []
+                for ch in range(self.channels):
+                    starts, valid, fields, lengths, header_ok = hs[ch, :5]
+                    header_ok = header_ok.astype(bool)
+                    dropped = int(hs[ch, 5, 0])
+                    if dropped:
+                        self.stats.detect_dropped += dropped
+                        if self.verbose:
+                            print(f"Detection events dropped ({dropped})",
+                                  file=sys.stderr)
+                    if int(hs[ch, 5, 1]) >= cap:
+                        # every slot of the full capacity filled: frames past
+                        # it were missed
+                        self.stats.detect_saturated += 1
+                        if self.verbose:
+                            print(f"Detection saturated ({cap} slots)",
+                                  file=sys.stderr)
+                    owned = header_ok & (starts >= 0) & (starts < step_k) \
+                        & (gpos + starts >= 0)
+                    if owned.any():
+                        # equal starts (a noise-fragmented plateau resolving
+                        # to one LTS pair twice) decode once
+                        ow = np.nonzero(owned)[0]
+                        _, first = np.unique(starts[ow], return_index=True)
+                        if first.size != ow.size:
+                            self.stats.dup_starts += ow.size - first.size
+                            dup = np.ones(ow.size, bool)
+                            dup[first] = False
+                            owned[ow[dup]] = False
+                    if not owned.any():
+                        continue
+                    self.stats.headers_ok += int(owned.sum())
+                    known = np.isin(fields, list(self._valid_fields)) & owned
+                    self.stats.unknown_rate += int((owned & ~known).sum())
+                    over = known & (lengths > self.max_length)
+                    self.stats.length_overflow += int(over.sum())
+                    sel = known & (lengths <= self.max_length)
+                    if sel.any():
+                        idx = np.nonzero(sel)[0]
+                        sel_chs.append(np.full(idx.size, ch, np.int32))
+                        sel_starts.append(starts[idx].astype(np.int32))
+                        sel_fields.append(fields[idx])
+                if sel_chs:
+                    # the owned region starts at window index `off` (0 for a
+                    # superstep)
+                    self._dispatch_decodes(
+                        gpos, win, off, np.concatenate(sel_chs),
+                        np.concatenate(sel_starts), np.concatenate(sel_fields),
+                        jobs)
+                if jobs:
+                    self._dec_q.append((gpos, win, jobs))
 
-        packets: list[DecodedPacket] = []
-        while self._dec_q and (len(self._dec_q) > keep
-                               or all(o.ready()
-                                      for *_, o in self._dec_q[0][2])):
-            gpos, win, jobs = self._dec_q.popleft()
-            packets.extend(self._collect_decodes(gpos, win, jobs))
-        return packets
+            packets: list[DecodedPacket] = []
+            while self._dec_q and (len(self._dec_q) > keep
+                                   or all(o.ready()
+                                          for *_, o in self._dec_q[0][2])):
+                gpos, win, jobs = self._dec_q.popleft()
+                packets.extend(self._collect_decodes(gpos, win, jobs))
+            return packets
 
 
 def length_classes(rates: tuple[Rate, ...],

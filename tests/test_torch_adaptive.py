@@ -36,7 +36,8 @@ from fun_ofdm_tpu_torch.runtime.wire import pack10
 torch.set_num_threads(1)
 
 Q = Rate.RATE_1_2_QPSK
-#: ChainStats fields that are host wall times, not counts
+#: the JAX chain's ChainStats fields that are host wall times, not counts
+#: (the port times its stages with spans instead: utils/trace.py)
 _TIMES = ("time_headers_s", "time_decode_s")
 
 

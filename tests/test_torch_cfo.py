@@ -34,7 +34,8 @@ torch.set_num_threads(1)
 CFOS = (1.5e-3, 4e-3, 8e-3)
 RATE = Rate.RATE_3_4_QAM16
 LENGTH = 40
-#: ChainStats fields that are host wall times, not counts
+#: the JAX chain's ChainStats fields that are host wall times, not counts
+#: (the port times its stages with spans instead: utils/trace.py)
 _TIMES = ("time_headers_s", "time_decode_s")
 
 
@@ -258,5 +259,5 @@ def test_chain_cfo_matches_jax_chain():
         assert all(p.payload == payload.tobytes() for p in got)
         a, b = dataclasses.asdict(mine.stats), dataclasses.asdict(ref.stats)
         for key in _TIMES:
-            a.pop(key), b.pop(key)
+            b.pop(key)
         assert a == b

@@ -22,6 +22,7 @@ from fun_ofdm_tpu_torch.ops import (convcode, viterbi, viterbi_ab,
                                     viterbi_blocked, viterbi_cuda)
 from fun_ofdm_tpu_torch.rates import Rate
 from fun_ofdm_tpu_torch.runtime import chain
+from fun_ofdm_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -219,6 +220,70 @@ def test_dense_chain_on_card_matches_cpu(cuda_device):
     assert got == want and len(got) == 6
     assert viterbi_cuda.launches["viterbi_blocked_decode"] > before
     assert c.stats.crc_ok == 6
+
+
+def test_viterbi_spans_on_the_card(cuda_device):
+    """With the tracer on, the CUDA Viterbi's entry points record their
+    spans: viterbi.exact inside the capture's rx.decode, viterbi.blocked
+    inside the chain's; the chain's waits are chain.wait spans. The
+    packets equal the untraced run's."""
+    rate, length = Rate.RATE_3_4_QAM16, 100
+    payload = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (2, length), dtype=np.uint8))
+    fre, fim = (f.numpy() for f in tx.build_frame_p(payload, rate))
+    n = 16384
+    s_re, s_im = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    for k, pos in enumerate((700, 9000)):
+        s_re[pos:pos + fre.shape[1]], s_im[pos:pos + fim.shape[1]] = \
+            fre[k], fim[k]
+
+    def run():
+        cap = frontend.receive_capture_p(
+            (torch.from_numpy(s_re[None]).to(cuda_device),
+             torch.from_numpy(s_im[None]).to(cuda_device)), rate, length, 4)
+        c = chain.ReceiverChain(rates=(rate,), max_length=length,
+                                params=ChainParams(chunk_size=4096,
+                                                   strides_per_step=1),
+                                ingest_dtype="int10", device=cuda_device)
+        pkts = []
+        for i in range(0, n, 4096):
+            pkts += c.process_samples((s_re[i:i + 4096], s_im[i:i + 4096]))
+        pkts += c.flush()
+        return ((cap["valid"] & cap["crc_ok"]).sum().item(),
+                [(p.payload, p.start) for p in pkts])
+
+    trace.disable()
+    trace.take()
+    want = run()
+    assert want[0] == 2 and [s for _, s in want[1]] == [700, 9000]
+    trace.enable()
+    try:
+        got = run()
+    finally:
+        trace.disable()
+    spans, counters = trace.take()
+    assert got == want and counters == {"dropped": 0}
+
+    def parent(s):
+        return spans[s.parent].name if s.parent >= 0 else None
+
+    exact = [s for s in spans if s.name == "viterbi.exact"]
+    blocked = [s for s in spans if s.name == "viterbi.blocked"]
+    # the capture: one header and one payload decode, in its rx.decode
+    assert [parent(s) for s in exact[:2]] == ["rx.decode"] * 2
+    assert spans[exact[0].parent].parent >= 0
+    # the chain's header pass takes the exact kernel inside
+    # frontend.decode_headers, its payload decodes (a SIGNAL header, then
+    # the payload) inside rx.decode
+    chained = {parent(s) for s in exact[2:]}
+    assert "frontend.decode_headers" in chained
+    assert chained <= {"frontend.decode_headers", "rx.decode",
+                       "viterbi.redecode_exact"}
+    assert len(blocked) == 2
+    assert {parent(s) for s in blocked} == {"rx.decode"}
+    waits = [s for s in spans if s.name == "chain.wait"]
+    assert waits and {parent(s) for s in waits} <= {
+        "chain.drain", "chain.collect", "viterbi.redecode_exact"}
 
 
 @pytest.mark.parametrize("mode", viterbi_ab.MODES)

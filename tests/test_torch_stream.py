@@ -30,7 +30,8 @@ from fun_ofdm_tpu_torch.runtime import chain
 
 torch.set_num_threads(1)
 
-#: ChainStats fields that are host wall times, not counts
+#: the JAX chain's ChainStats fields that are host wall times, not counts
+#: (the port times its stages with spans instead: utils/trace.py)
 _TIMES = ("time_headers_s", "time_decode_s")
 
 
