@@ -120,8 +120,17 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      single-process receive_capture_p on the card, each rank's wall ms
      per call (after a warm-up, CUDA-synchronised; the 4 ranks share the
      card) beside phase 4's; (c) the same capture on a one-rank NCCL
-     group (mesh 1 x 1), the all-gather on the card.
-The phases run in the order 1-9, 14, 15, 10, 13, 11, 12. Each main-path
+     group (mesh 1 x 1), the all-gather on the card;
+ 16. frame detection's two kernels (csrc/detect.cu, through
+     frontend.detect_frames) against the plain version
+     (frontend.detect_frames_plain) on the card: starts, valid and dropped
+     equal, the LTS correlation to float32 rounding, at the capture's
+     shape (fun_ofdm's test_sim recording, 1 x 7,832,000 samples, k =
+     100, every frame found) and the K=1 chain's header window (11,216
+     samples, drops counted below 4,096); both timed (CUDA events), each
+     kernel's device time (torch.profiler) and the bound (the filter's
+     FP64 FMAs at the card's FP64 rate, or its bytes).
+The phases run in the order 1-3, 16, 4-9, 14, 15, 10, 13, 11, 12. Each main-path
 phase (4, 6-15) sets the kernels' launch counts to 0 just before it runs
 and reads them just after; phase 15 adds the counts its ranks report.
 The last two lines are a JSON object with one entry per kernel (its
@@ -167,6 +176,9 @@ API_UDP_FRAMES = 64
 #: data sheet a 1.98 GHz boost clock): memory bytes/s and int32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: FP64 FMAs/s: 64 FP64 lanes per SM (the white paper; 33.5 TFLOP/s in the
+#: data sheet)
+FP64_FMAS_PER_S = 132 * 64 * 1.98e9
 #: integer operations of one ACS trellis step, as few as the recurrence
 #: needs: a step has 4 distinct branch metrics, one per code-bit parity
 #: pair: their 4 soft sums take 5 ops (s0 + s1, 255 - s1, s0 + (255 - s1),
@@ -368,7 +380,6 @@ def kernel_phase() -> list:
 def slice_phase() -> tuple[dict, dict]:
     """bench_capture's geometry through the port on the card."""
     from fun_ofdm_tpu_torch.models import frontend
-    from fun_ofdm_tpu_torch.ops import viterbi_cuda
     from fun_ofdm_tpu_torch.rates import Rate, params_for
 
     dev = torch.device("cuda")
@@ -384,11 +395,11 @@ def slice_phase() -> tuple[dict, dict]:
         return frontend.receive_capture_p(streams, rate, LENGTH,
                                           FRAMES_PER_CHANNEL)
 
-    viterbi_cuda.reset_launches()
+    reset_launches()
     streams = capture_streams()
     out = receive(streams)
     torch.cuda.synchronize()
-    launches = dict(viterbi_cuda.launches)
+    launches = read_launches()
 
     n_samples = streams[0].numel()
     expected = CHANNELS * FRAMES_PER_CHANNEL
@@ -404,7 +415,7 @@ def slice_phase() -> tuple[dict, dict]:
         raise AssertionError("headers or payloads differ from the input")
     if not (starts == frame_len * np.arange(FRAMES_PER_CHANNEL)).all():
         raise AssertionError(f"frame starts {starts}")
-    for name in ("viterbi_acs", "viterbi_chainback"):
+    for name in ("viterbi_acs", "viterbi_chainback", "detect_frames"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
@@ -432,6 +443,108 @@ def slice_phase() -> tuple[dict, dict]:
            "profile_three_calls": prof}
     print("slice:", json.dumps(rec), flush=True)
     return rec, launches
+
+
+def test_sim_capture(device):
+    """fun_ofdm's test_sim recording (phybench's sim1-r36-1500): 100
+    distinct 1500-byte RATE_3_4_QAM16 frames back to back, every second
+    one with AWGN at 12.5 dB over its SIGNAL and data symbols, then a zero
+    pad of 1000 frame lengths; a (1, 7,832,000) complex64 tensor."""
+    from fun_ofdm_tpu_torch.models import tx
+    from fun_ofdm_tpu_torch.rates import Rate
+
+    rng = np.random.default_rng(SEED + 16)
+    payloads = rng.integers(0, 256, size=(100, LENGTH), dtype=np.uint8)
+    fre, fim = tx.build_frame_p(torch.from_numpy(payloads), Rate[RATE_NAME])
+    frames = fre.numpy() + 1j * fim.numpy()
+    sigma = np.sqrt(52 / 4096 / 10 ** 1.25 / 2)
+    noisy = frames[1::2, 320:]
+    noisy += sigma * (rng.standard_normal(noisy.shape)
+                      + 1j * rng.standard_normal(noisy.shape))
+    x = np.zeros((1, 1100 * frames.shape[1]), np.complex64)
+    x[0, :frames.size] = frames.reshape(-1)
+    return torch.from_numpy(x).to(device)
+
+
+def detect_case(name, x, k, drop_count_limit=None):
+    """The detection kernels vs their plain version on one input, timed:
+    both through CUDA events, each kernel's device time through the
+    profiler, and the bound."""
+    from fun_ofdm_tpu_torch.config import ChainParams
+    from fun_ofdm_tpu_torch.models import frontend
+    from fun_ofdm_tpu_torch.ops import correlate, detect_cuda
+    from torch.profiler import ProfilerActivity, profile
+
+    params = ChainParams()
+    got = frontend.detect_frames(x, k, params, True, drop_count_limit)
+    want = frontend.detect_frames_plain(x, k, params, True, drop_count_limit)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    n = x.shape[-1]
+    lts = detect_cuda.detect(x, k, params, frontend._block_cap(n, k),
+                             drop_count_limit, True)[3]
+    lts_err = float((lts - correlate.lts_correlation(x)).abs().max())
+    reps = 20
+    ms = cuda_ms(lambda: frontend.detect_frames(x, k, params, True,
+                                                drop_count_limit), reps=reps)
+    plain_ms = cuda_ms(lambda: frontend.detect_frames_plain(
+        x, k, params, True, drop_count_limit), reps=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            frontend.detect_frames(x, k, params, True, drop_count_limit)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        m = re.search(r"(detect_\w+_kernel)", e.key)
+        if m and e.self_device_time_total > 0:
+            kernels[m.group(1)] = e.self_device_time_total / 1e3 / reps
+    # the matched filter's FP64 FMAs (4 a tap, 64 taps a sample) or the
+    # bytes: the samples read, the correlation, event bits and slots written
+    fmas = x.numel() * 64 * 4
+    t_ops = fmas / FP64_FMAS_PER_S * 1e3
+    t_bytes = (x.numel() * 12 + x.numel() / 8 + k * 9) / HBM_BYTES_PER_S * 1e3
+    rec = {"case": name, "shape": list(x.shape), "k": k,
+           "drop_count_limit": drop_count_limit, "equal": equal,
+           "valid": int(got[1].sum()), "dropped": int(got[2].sum()),
+           "lts_max_abs_err": lts_err, "ms": ms, "plain_ms": plain_ms,
+           "kernel_device_ms": kernels,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "fp64 fmas" if t_ops >= t_bytes else "bytes"}
+    print("detect vs plain:", json.dumps(rec), flush=True)
+    if not equal or lts_err > 1e-5:
+        raise AssertionError(f"the detection kernels disagree with their "
+                             f"plain version: {rec}")
+    return rec
+
+
+def detect_phase() -> list:
+    """Phase 16: frame detection's kernels (csrc/detect.cu) against the
+    plain version on the card, at the capture's shape and the K=1 chain's
+    header window."""
+    from fun_ofdm_tpu_torch.ops import detect_cuda
+    from fun_ofdm_tpu_torch.rates import Rate, params_for
+    from fun_ofdm_tpu_torch.runtime import chain
+
+    t0 = time.perf_counter()
+    detect_cuda.build()
+    log = detect_cuda.library_path().with_suffix(".log")
+    print(f"detect build: {time.perf_counter() - t0:.2f} s; registers: "
+          f"{json.dumps(register_report(log.read_text()))}", flush=True)
+    dev = torch.device("cuda")
+    capture = test_sim_capture(dev)
+    cases = [detect_case("capture", capture, 100)]
+    if cases[0]["valid"] != 100:
+        raise AssertionError(f"capture: {cases[0]['valid']}/100 frames")
+    # the K=1 chain's header pass: a 4,096-sample read and one longest
+    # frame (11,216 samples), drops counted in the read, the read's
+    # capacity in shortest frames
+    step = 4096
+    rate = Rate[RATE_NAME]
+    window = step + params_for(rate).frame_samples(LENGTH)
+    k = -(-(step + chain.DETECT_LEAD) // params_for(rate).frame_samples(1)) + 1
+    cases.append(detect_case("k1_window", capture[:, :window].contiguous()
+                             .reshape(-1), k, drop_count_limit=step))
+    return cases
 
 
 def kernel_record(kernel: str, replaces: str, cases: list, launches: dict):
@@ -612,15 +725,28 @@ def check_packets(pkts, planted, what: str) -> None:
                                  f"{p.channel} decoded wrong")
 
 
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from fun_ofdm_tpu_torch.ops import detect_cuda, viterbi_cuda
+
+    viterbi_cuda.reset_launches()
+    detect_cuda.reset_launches()
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count, by name."""
+    from fun_ofdm_tpu_torch.ops import detect_cuda, viterbi_cuda
+
+    return {**viterbi_cuda.launches, **detect_cuda.launches}
+
+
 def launches_of(fn):
     """Run fn with every kernel's launch count set to 0; return its result
     and the counts just after."""
-    from fun_ofdm_tpu_torch.ops import viterbi_cuda
-
-    viterbi_cuda.reset_launches()
+    reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(viterbi_cuda.launches)
+    return out, read_launches()
 
 
 def profile_device(fn) -> dict:
@@ -1589,7 +1715,6 @@ def api_phase(select_rec: dict) -> dict:
     record's "launches" are the kernels' counts over the whole phase, set
     to 0 at its start."""
     from fun_ofdm_tpu_torch.api import CaptureSink, Transmitter
-    from fun_ofdm_tpu_torch.ops import viterbi_cuda
     from fun_ofdm_tpu_torch.rates import ALL_RATES, Rate, params_for
     from fun_ofdm_tpu_torch.runtime.io import (FileSink, FileSource,
                                                LoopbackRadio, UdpSink,
@@ -1599,7 +1724,7 @@ def api_phase(select_rec: dict) -> dict:
     rng = np.random.default_rng(SEED + 13)
     frame_len = params_for(rate).frame_samples(LENGTH)
     rec = {}
-    viterbi_cuda.reset_launches()
+    reset_launches()
 
     def payloads_of(lengths):
         return [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
@@ -1732,7 +1857,7 @@ def api_phase(select_rec: dict) -> dict:
     # phase 8's stream by the gather strategy (the pass counts its own
     # launches from 0)
     torch.cuda.synchronize()
-    launches = dict(viterbi_cuda.launches)
+    launches = read_launches()
     gather = all_rates_phase("gather")
     rec["launches"] = {k: v + gather["launches"][k]
                        for k, v in launches.items()}
@@ -1763,7 +1888,7 @@ def main() -> int:
     # full float32 in every matmul and convolution
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from fun_ofdm_tpu_torch.ops import viterbi_cuda
+    from fun_ofdm_tpu_torch.ops import detect_cuda, viterbi_cuda
 
     print(card_line(), flush=True)
     t0 = time.perf_counter()
@@ -1776,6 +1901,7 @@ def main() -> int:
           f"{json.dumps(register_report(ptxas_log))}", flush=True)
 
     cases = kernel_phase()
+    detect = detect_phase()
     slice_rec, launches = slice_phase()
     blocked = blocked_phase()
     dense = dense_stream_phase()
@@ -1822,6 +1948,12 @@ def main() -> int:
                  for c in blocked}),
         kernel_record("acs_ablate", "tools/viterbi_acs_ab.py:148", ablate,
                       launches),
+        {"name": "detect_frames", "route": "cuda",
+         "source": "fun_ofdm_tpu_torch/csrc/detect.cu", "replaces": None,
+         "launches": launches["detect_frames"], "cases": detect,
+         "ptxas": ptxas_report(
+             detect_cuda.library_path().with_suffix(".log").read_text()),
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..config import DEFAULT_PARAMS, ChainParams
-from ..ops import correlate
+from ..ops import correlate, detect_cuda
 from ..rates import Rate, params_for
 from ..utils import trace
 from . import ppdu as ppdu_model
@@ -107,7 +107,33 @@ def detect_frames(stream: torch.Tensor, max_frames: int,
          peak 0 paired with the first of peaks 1..4 exactly 64 away
          (timing_sync.cpp:92-117);
       4. frame start = min(pair) - 32 - 160.
+    A CPU tensor takes the plain version, detect_frames_plain; a CUDA
+    tensor (complex64, contiguous) the two kernels of csrc/detect.cu, with
+    the same outputs (ops/detect_cuda.py).
     """
+    if not stream.is_cuda:
+        return detect_frames_plain(stream, max_frames, params, return_dropped,
+                                   drop_count_limit)
+    out = detect_cuda.detect(stream, max_frames, params,
+                             _block_cap(stream.shape[-1], max_frames),
+                             drop_count_limit)
+    return out if return_dropped else out[:2]
+
+
+def _block_cap(n: int, max_frames: int) -> int:
+    """Events _first_k_true keeps from each _BLOCK-sample block of an
+    n-sample stream: _BLOCK_CAP on the blocked path, all on the exact one."""
+    if n > _BLOCKED_MIN_N and max_frames <= -(-n // _BLOCK) * _BLOCK_CAP:
+        return _BLOCK_CAP
+    return _BLOCK
+
+
+def detect_frames_plain(stream: torch.Tensor, max_frames: int,
+                        params: ChainParams = DEFAULT_PARAMS,
+                        return_dropped: bool = False,
+                        drop_count_limit: int | None = None):
+    """The plain version of detect_frames, on any device: the steps of its
+    docstring as eager PyTorch ops."""
     n = stream.shape[-1]
     ratio = correlate.sts_ratio(stream, params.sts_length)
     ends = correlate.sts_end_events(ratio, params.plateau_threshold,

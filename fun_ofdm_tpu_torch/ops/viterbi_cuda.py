@@ -50,22 +50,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ..utils import trace
-from . import viterbi_blocked
+from . import nvcc, viterbi_blocked
 
 K = 7
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "viterbi.cu"
-BUILD_DIR = SOURCE.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches since the last reset_launches(), by kernel name
 launches = {"viterbi_acs": 0, "viterbi_chainback": 0,
@@ -81,44 +74,16 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
 def library_path() -> Path:
     """Where the built library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libviterbi_{digest[:16]}.so"
+    return nvcc.library_path(SOURCE, "viterbi")
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
-    """Compile the kernels (once per source version) and load them.
-
-    The compiler's report (registers, spills, shared memory per kernel)
-    is kept beside the library, with the suffix .log.
-    """
-    lib_path = library_path()
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    """Compile the kernels (once per source version) and load them
+    (ops/nvcc.py; the compiler's report is kept beside the library)."""
+    lib = nvcc.load(SOURCE, "viterbi")
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     lib.viterbi_acs.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
     lib.viterbi_acs.restype = cint

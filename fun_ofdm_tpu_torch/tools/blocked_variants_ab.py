@@ -51,7 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import convcode, viterbi, viterbi_blocked, viterbi_cuda
+from ..ops import convcode, nvcc, viterbi, viterbi_blocked, viterbi_cuda
 
 _TRACE_START = "  // the traceback."
 _TRACE_END = "  // the window's span of the output\n"
@@ -163,7 +163,7 @@ def _build(sources: dict, workdir: Path) -> dict:
         cu = workdir / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [viterbi_cuda._nvcc(), *viterbi_cuda.NVCC_FLAGS, "-o",
+            [nvcc.compiler(), *nvcc.FLAGS, "-o",
              str(workdir / f"{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     out = {}

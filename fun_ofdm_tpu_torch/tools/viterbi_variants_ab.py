@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from ..ops import viterbi, viterbi_cuda
+from ..ops import nvcc, viterbi, viterbi_cuda
 from .viterbi_acs_ab import make_soft
 
 _RENORM_EARLY = """        if constexpr (kRenorm) {
@@ -94,7 +94,7 @@ def _build(sources: dict, workdir: Path) -> dict:
         cu = workdir / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [viterbi_cuda._nvcc(), *viterbi_cuda.NVCC_FLAGS, "-o",
+            [nvcc.compiler(), *nvcc.FLAGS, "-o",
              str(workdir / f"{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     out = {}
