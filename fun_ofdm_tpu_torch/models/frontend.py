@@ -285,15 +285,19 @@ def _receive_dynamic(stream: torch.Tensor, frame_len_max: int,
     """Detect, then decode every slot with `decode(padded, starts)` over
     the stream zero-padded by one longest frame (a frame cut by the
     capture's end reads zeros and fails its CRC); the decode's `keys`
-    pass through."""
-    starts, valid, dropped = detect_frames(stream, max_frames, params,
-                                           return_dropped=True)
-    padded = torch.nn.functional.pad(stream, (0, frame_len_max))
-    out = decode(padded, torch.where(valid, starts, 0))
-    return {"starts": starts, "valid": valid,
-            "crc_ok": out["crc_ok"] & valid,
-            "header_ok": out["header_ok"] & valid,
-            "detect_dropped": dropped, **{k: out[k] for k in keys}}
+    pass through. The spans are receive_capture's."""
+    with trace.span("frontend.receive_capture"):
+        with trace.span("frontend.detect"):
+            starts, valid, dropped = detect_frames(stream, max_frames,
+                                                   params,
+                                                   return_dropped=True)
+        with trace.span("rx.decode"):
+            padded = torch.nn.functional.pad(stream, (0, frame_len_max))
+            out = decode(padded, torch.where(valid, starts, 0))
+        return {"starts": starts, "valid": valid,
+                "crc_ok": out["crc_ok"] & valid,
+                "header_ok": out["header_ok"] & valid,
+                "detect_dropped": dropped, **{k: out[k] for k in keys}}
 
 
 def receive_capture_dynamic_p(stream, rate: Rate, max_length: int,

@@ -21,6 +21,7 @@ import torch
 
 from ..ops import convcode, crc32, interleave, puncture, qam, scramble, viterbi
 from ..rates import VALID_RATE_FIELDS, Rate, params_for
+from ..utils import trace
 from ..utils.bits import bits_to_bytes, bytes_to_bits
 
 HEADER_BITS = 18  # rate(4) + reserved(1) + length(12) + parity(1)
@@ -432,10 +433,13 @@ def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
     dbps = torch.tensor([params_for(r).dbps for r in rates], device=dev)
     nbits = _frame_nbits(lengths_c, dbps[ridx])
 
-    if strategy == "select":
-        coded = _anyrate_coded_select(samples, rates, ridx, 2 * nbits_max)
-    else:
-        coded = _anyrate_coded_gather(samples, rates, ridx, max_length)
+    trace.count("anyrate.rate_passes",
+                ridx.numel() * (len(rates) if strategy == "select" else 1))
+    with trace.span("ppdu.anyrate_coded"):
+        if strategy == "select":
+            coded = _anyrate_coded_select(samples, rates, ridx, 2 * nbits_max)
+        else:
+            coded = _anyrate_coded_gather(samples, rates, ridx, max_length)
     decoded_bits, exact_ok = viterbi.viterbi_decode(
         coded, nbits_max - TAIL_BITS, impl=viterbi_impl,
         nbits_dynamic=nbits - TAIL_BITS, return_exact=True)

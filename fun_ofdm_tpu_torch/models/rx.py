@@ -25,6 +25,7 @@ import torch
 from .. import preamble as pre
 from ..ops import fft64, mapper
 from ..rates import Rate, params_for
+from ..utils import trace
 from . import ppdu
 
 
@@ -325,8 +326,12 @@ def decode_frames_anyrate(stream: torch.Tensor, rates: tuple[Rate, ...],
     where the header's rate is one of `rates`."""
     rates = tuple(rates)
     nsym_max = max(params_for(r).num_symbols(max_length) for r in rates)
-    rest, rate_field, hdr_length, header_ok = _header_and_rest(
-        stream, starts, nsym_max, cfo_correct)
+    slots = starts.numel()
+    trace.count("anyrate.slots", slots)
+    trace.count("anyrate.symbols", slots * nsym_max)
+    with trace.span("rx.anyrate_sync"):
+        rest, rate_field, hdr_length, header_ok = _header_and_rest(
+            stream, starts, nsym_max, cfo_correct)
     rate_idx = torch.full_like(rate_field, -1)
     for i, r in enumerate(rates):
         rate_idx = torch.where(rate_field == params_for(r).rate_field, i,

@@ -30,6 +30,10 @@ At most LIMIT spans are kept between two take() calls; `counters["dropped"]`
 counts the spans past it. Call take() between calls into the program: a
 span still open then is not returned.
 
+`count(name, n)` adds n to a named counter while the tracer is on (off, it
+returns at once). take() returns each counter's total since the last
+take() beside `dropped`; a counter never counted is absent.
+
 While a torch.profiler is active, each span is also a record_function
 annotation of its name, so the program's spans lie on the device trace's
 timeline: an idle gap of the device can be named by the span the host was
@@ -49,9 +53,25 @@ The spans, by layer (the names of PERF.md's list of layers):
                     stage), chain.header_overflow, rx.decode (each decode
                     bucket's dispatch, id gpos), chain.collect (id gpos;
                     viterbi.redecode_exact inside it)
-  frontend.receive_capture   root of the capture entry: frontend.detect,
-                    rx.decode
+  frontend.receive_capture   root of the capture entries (receive_capture,
+                    receive_capture_dynamic_p, receive_capture_anyrate_p):
+                    frontend.detect, rx.decode
+  rx.anyrate_sync   inside the universal decode (rx.decode_frames_anyrate):
+                    extraction, FFT, equalisation and the SIGNAL header
+                    of every slot at the slowest rate's longest frame
+  ppdu.anyrate_coded   the universal decode's soft streams at each frame's
+                    rate ("select": every rate's own pipeline; "gather":
+                    one all-modulation demodulation and a table gather)
   viterbi.exact, viterbi.blocked   the CUDA Viterbi's C entry points
+
+The counters, all known on the host (no sync):
+
+  anyrate.slots        slots the universal decode decoded
+  anyrate.symbols      data symbols it extracted and equalised: slots x
+                       the slowest rate's symbols at max_length
+  anyrate.rate_passes  soft-stream pipelines it ran: under "select" one
+                       per configured rate a slot, under "gather" one a
+                       slot
 """
 
 from __future__ import annotations
@@ -78,6 +98,7 @@ class Span(NamedTuple):
 _enabled = False
 _records: list = []             # [name, id, parent record, t0, t1]
 _dropped = 0
+_counts: dict = {}              # counter totals since the last take()
 _roots: dict = {}               # root spans recorded so far, by name
 _local = threading.local()      # .stack: the open records of a thread
 
@@ -142,6 +163,12 @@ def span(name: str, id: int | None = None):
     return _On(name, id)
 
 
+def count(name: str, n: int) -> None:
+    """Add n to counter `name` while the tracer is on; off, do nothing."""
+    if _enabled:
+        _counts[name] = _counts.get(name, 0) + n
+
+
 def enable() -> None:
     """Turn the tracer on (spans recorded until disable())."""
     global _enabled
@@ -156,15 +183,16 @@ def disable() -> None:
 
 def take() -> tuple[list[Span], dict]:
     """The spans closed since the last take(), in the order they began,
-    and the counters ({"dropped": spans past LIMIT}); clears both."""
-    global _records, _dropped, _roots
-    recs, dropped = _records, _dropped
-    _records, _dropped, _roots = [], 0, {}
+    and the counters ({"dropped": spans past LIMIT} and the totals of
+    count()); clears both."""
+    global _records, _dropped, _counts, _roots
+    recs, dropped, counts = _records, _dropped, _counts
+    _records, _dropped, _counts, _roots = [], 0, {}, {}
     closed = [r for r in recs if r[4]]
     index = {id(r): i for i, r in enumerate(closed)}
     spans = [Span(r[0], r[1], -1 if r[2] is None else index.get(id(r[2]), -1),
                   r[3], r[4]) for r in closed]
-    return spans, {"dropped": dropped}
+    return spans, {"dropped": dropped, **counts}
 
 
 def summary(spans: list[Span]) -> dict:

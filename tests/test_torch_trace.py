@@ -335,3 +335,60 @@ def test_capture_tree(tracer):
         kids = _children(spans, i)
         assert [k.name for k in kids] == ["frontend.detect", "rx.decode"]
         assert all(k.id == spans[i].id for k in kids)
+
+
+# --- the universal capture's spans and counters ------------------------------
+
+
+def test_count_is_a_noop_when_off(tracer):
+    tracer.count("anyrate.slots", 5)
+    assert tracer.take() == ([], {"dropped": 0})
+    tracer.enable()
+    tracer.count("anyrate.slots", 5)
+    tracer.count("anyrate.slots", 2)
+    tracer.disable()
+    tracer.count("anyrate.slots", 100)
+    assert tracer.take() == ([], {"dropped": 0, "anyrate.slots": 7})
+    assert tracer.take() == ([], {"dropped": 0})     # cleared
+
+
+@pytest.mark.parametrize("strategy,passes", [("select", 11), ("gather", 1)])
+def test_anyrate_capture_tree_and_counters(tracer, strategy, passes):
+    """receive_capture_anyrate_p opens receive_capture's spans, the
+    universal decode its two stages inside rx.decode, and counts its slots,
+    their symbols at the slowest rate's geometry and its soft-stream
+    pipelines; traced and untraced give the same outputs."""
+    from fun_ofdm_tpu_torch.rates import ALL_RATES, params_for
+
+    (re, im), _ = _frames()
+    stream = (torch.from_numpy(re[None]), torch.from_numpy(im[None]))
+    slots = 4
+
+    def call():
+        return frontend.receive_capture_anyrate_p(
+            stream, ALL_RATES, LENGTH, slots, strategy=strategy)
+    want = call()
+    tracer.enable()
+    got = [call() for _ in range(2)]
+    spans, counters = tracer.take()
+    for out in got:
+        for k in want:
+            assert torch.equal(out[k], want[k]), k
+    ok = (want["valid"] & want["crc_ok"])[0]
+    assert want["starts"][0, ok].tolist() == [1000, 9000]
+    roots = [i for i, s in enumerate(spans) if s.parent == -1]
+    assert [(spans[i].name, spans[i].id) for i in roots] == [
+        ("frontend.receive_capture", 0), ("frontend.receive_capture", 1)]
+    for i in roots:
+        assert [k.name for k in _children(spans, i)] == [
+            "frontend.detect", "rx.decode"]
+        dec = next(j for j, s in enumerate(spans)
+                   if s.parent == i and s.name == "rx.decode")
+        # on the CPU the Viterbi is the plain twin: no viterbi.exact span
+        assert [k.name for k in _children(spans, dec)] == [
+            "rx.anyrate_sync", "ppdu.anyrate_coded"]
+        assert all(k.id == spans[i].id for k in _children(spans, dec))
+    nsym_max = params_for(Rate.RATE_1_2_BPSK).num_symbols(LENGTH)
+    assert counters == {"dropped": 0, "anyrate.slots": 2 * slots,
+                        "anyrate.symbols": 2 * slots * nsym_max,
+                        "anyrate.rate_passes": 2 * slots * passes}
