@@ -129,9 +129,20 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      100, every frame found) and the K=1 chain's header window (11,216
      samples, drops counted below 4,096); both timed (CUDA events), each
      kernel's device time (torch.profiler) and the bound (the filter's
-     FP64 FMAs at the card's FP64 rate, or its bytes).
-The phases run in the order 1-3, 16, 4-9, 14, 15, 10, 13, 11, 12. Each main-path
-phase (4, 6-15) sets the kernels' launch counts to 0 just before it runs
+     FP64 FMAs at the card's FP64 rate, or its bytes);
+ 17. the universal decode's soft-stream kernel (csrc/softbits.cu, through
+     ops/softbits_cuda.softbits) against both plain versions on the card
+     at the universal capture's shape (100 slots x 1,368 symbols, all 11
+     rates, max_length 4095; the points as the real and imaginary views of
+     a complex64 tensor): equal to _anyrate_coded_gather over the whole
+     output and to _anyrate_coded_select up to each slot's rate's end,
+     with the slots all RATE_3_4_QAM16 (the capture cell's frames), all
+     RATE_1_2_BPSK (the most points read) and of random rates; the kernel
+     and both plain versions timed (CUDA events), the kernel's device time
+     (torch.profiler) and its bound (the output written and the points
+     read, 8 bytes a point, at the card's memory rate).
+The phases run in the order 1-3, 16, 17, 4-9, 14, 15, 10, 13, 11, 12. Each
+main-path phase (4, 6-15) sets the kernels' launch counts to 0 just before it runs
 and reads them just after; phase 15 adds the counts its ranks report.
 The last two lines are a JSON object with one entry per kernel (its
 time, its plain version's, and its bound: the larger of its bytes over
@@ -219,8 +230,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def ptxas_report(ptxas_log: str) -> dict:
     """{kernel: {"registers": n, "smem_static": bytes}} from nvcc's -Xptxas
     -v report; a template instance is named by its mode, e.g.
-    acs_ablate_kernel<0>. Dynamic shared memory is not in the report."""
-    out, name = {}, None
+    acs_ablate_kernel<0>; with each kernel's spill stores and loads in
+    bytes. Dynamic shared memory is not in the report."""
+    out, name, spills = {}, None, None
     for ln in ptxas_log.splitlines():
         entry = re.search(r"entry function '(\w+)'", ln)
         if entry:
@@ -228,11 +240,16 @@ def ptxas_report(ptxas_log: str) -> dict:
                           entry.group(1))
             name = entry.group(1) if m is None else (
                 m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        if spill:
+            spills = [int(spill.group(1)), int(spill.group(2))]
         regs = re.search(r"Used (\d+) registers", ln)
         if regs and name is not None:
             smem = re.search(r"(\d+) bytes smem", ln)
             out[name] = {"registers": int(regs.group(1)),
-                         "smem_static": int(smem.group(1)) if smem else 0}
+                         "smem_static": int(smem.group(1)) if smem else 0,
+                         "spill_stores_loads": spills}
             name = None
     return out
 
@@ -547,6 +564,93 @@ def detect_phase() -> list:
     return cases
 
 
+def softbits_case(name, samples, rates, ridx, max_length, reps=50):
+    """The soft-stream kernel vs both plain versions on one input, timed:
+    all three through CUDA events, the kernel's device time through the
+    profiler, and its bound (bytes)."""
+    from fun_ofdm_tpu_torch.models import ppdu
+    from fun_ofdm_tpu_torch.ops import softbits_cuda
+    from fun_ofdm_tpu_torch.rates import params_for
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel():
+        return softbits_cuda.softbits(samples, rates, ridx, max_length)
+
+    got = kernel()
+    row = got.shape[-1]
+    gather = ppdu._anyrate_coded_gather(samples, rates, ridx, max_length)
+    select = ppdu._anyrate_coded_select(samples, rates, ridx, row)
+    n_coded = torch.tensor([2 * params_for(r).num_data_bits(max_length)
+                            for r in rates], device=ridx.device)[ridx]
+    inside = torch.arange(row, device=ridx.device) < n_coded[:, None]
+    rec = {"case": name, "shape": list(got.shape),
+           "equal_gather": bool(torch.equal(got, gather)),
+           "equal_select_inside": bool(torch.equal(got[inside],
+                                                   select[inside])),
+           "erasure_outside": bool((got[~inside] == 127).all())}
+    del gather, select
+    rec["ms"] = cuda_ms(kernel, reps=reps)
+    rec["gather_ms"] = cuda_ms(lambda: ppdu._anyrate_coded_gather(
+        samples, rates, ridx, max_length), reps=3)
+    rec["select_ms"] = cuda_ms(lambda: ppdu._anyrate_coded_select(
+        samples, rates, ridx, row), reps=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    rec["kernel_device_ms"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if "softbits_kernel" in e.key) / 1e3 / reps
+    # the output written once and the points each slot's rate covers read
+    # once, 8 bytes a point (a complex64 point's real and imaginary parts)
+    points = sum(params_for(rates[int(i)]).num_symbols(max_length) * 48
+                 for i in ridx.tolist())
+    rec["bytes"] = got.numel() * 4 + points * 8 + ridx.numel() * 8
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    rec["bound_by"] = "bytes"
+    print("softbits vs plain:", json.dumps(rec), flush=True)
+    if not (rec["equal_gather"] and rec["equal_select_inside"]
+            and rec["erasure_outside"]):
+        raise AssertionError(f"the soft-stream kernel disagrees with its "
+                             f"plain versions: {rec}")
+    return rec
+
+
+def softbits_phase() -> list:
+    """Phase 17: the universal decode's soft-stream kernel
+    (csrc/softbits.cu) against both plain versions on the card, at the
+    universal capture's shape."""
+    from fun_ofdm_tpu_torch.ops import softbits_cuda
+    from fun_ofdm_tpu_torch.rates import ALL_RATES, Rate, params_for
+
+    t0 = time.perf_counter()
+    softbits_cuda.build()
+    log = softbits_cuda.library_path().with_suffix(".log")
+    print(f"softbits build: {time.perf_counter() - t0:.2f} s; ptxas: "
+          f"{json.dumps(ptxas_report(log.read_text()))}", flush=True)
+    dev = torch.device("cuda")
+    rates, max_length, slots = tuple(ALL_RATES), 4095, 100
+    nsym = max(params_for(r).num_symbols(max_length) for r in rates)
+    rng = np.random.default_rng(SEED + 17)
+    # a SIGNAL symbol then the data symbols, as models/rx equalises them
+    pts = rng.normal(0, 0.6, (2, slots, 1 + nsym, 48)).astype(np.float32)
+    data = torch.complex(torch.from_numpy(pts[0]),
+                         torch.from_numpy(pts[1])).to(dev)
+    rest = data[..., 1:, :].reshape(slots, -1)
+    samples = (rest.real, rest.imag)
+
+    def all_at(rate):
+        return torch.full((slots,), rates.index(rate), dtype=torch.int64,
+                          device=dev)
+    mixed = torch.from_numpy(rng.integers(0, len(rates), slots)).to(dev)
+    return [softbits_case("capture_qam16_3_4", samples, rates,
+                          all_at(Rate.RATE_3_4_QAM16), max_length),
+            softbits_case("all_bpsk_1_2", samples, rates,
+                          all_at(Rate.RATE_1_2_BPSK), max_length),
+            softbits_case("mixed", samples, rates, mixed, max_length)]
+
+
 def kernel_record(kernel: str, replaces: str, cases: list, launches: dict):
     """The result entry of kernel "acs", "chainback", "blocked_decode" or
     "acs_ablate"; `replaces` is where its TPU counterpart starts (for the
@@ -727,17 +831,19 @@ def check_packets(pkts, planted, what: str) -> None:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from fun_ofdm_tpu_torch.ops import detect_cuda, viterbi_cuda
+    from fun_ofdm_tpu_torch.ops import detect_cuda, softbits_cuda, viterbi_cuda
 
     viterbi_cuda.reset_launches()
     detect_cuda.reset_launches()
+    softbits_cuda.reset_launches()
 
 
 def read_launches() -> dict:
     """Every kernel's launch count, by name."""
-    from fun_ofdm_tpu_torch.ops import detect_cuda, viterbi_cuda
+    from fun_ofdm_tpu_torch.ops import detect_cuda, softbits_cuda, viterbi_cuda
 
-    return {**viterbi_cuda.launches, **detect_cuda.launches}
+    return {**viterbi_cuda.launches, **detect_cuda.launches,
+            **softbits_cuda.launches}
 
 
 def launches_of(fn):
@@ -1888,7 +1994,7 @@ def main() -> int:
     # full float32 in every matmul and convolution
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from fun_ofdm_tpu_torch.ops import detect_cuda, viterbi_cuda
+    from fun_ofdm_tpu_torch.ops import detect_cuda, softbits_cuda, viterbi_cuda
 
     print(card_line(), flush=True)
     t0 = time.perf_counter()
@@ -1902,6 +2008,7 @@ def main() -> int:
 
     cases = kernel_phase()
     detect = detect_phase()
+    softbits = softbits_phase()
     slice_rec, launches = slice_phase()
     blocked = blocked_phase()
     dense = dense_stream_phase()
@@ -1953,6 +2060,16 @@ def main() -> int:
          "launches": launches["detect_frames"], "cases": detect,
          "ptxas": ptxas_report(
              detect_cuda.library_path().with_suffix(".log").read_text()),
+         "library_ms": None},
+        {"name": "softbits", "route": "cuda",
+         "source": "fun_ofdm_tpu_torch/csrc/softbits.cu", "replaces": None,
+         "launches": launches["softbits"], "cases": softbits,
+         "max_abs_err": 0, "ms": softbits[0]["ms"],
+         "plain_ms": {"gather": softbits[0]["gather_ms"],
+                      "select": softbits[0]["select_ms"]},
+         "bound_ms": softbits[0]["bound_ms"], "bound_by": "bytes",
+         "ptxas": ptxas_report(
+             softbits_cuda.library_path().with_suffix(".log").read_text()),
          "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import convcode, crc32, interleave, puncture, qam, scramble, viterbi
+from ..ops import (convcode, crc32, interleave, puncture, qam, scramble,
+                   softbits_cuda, viterbi)
 from ..rates import VALID_RATE_FIELDS, Rate, params_for
 from ..utils import trace
 from ..utils.bits import bits_to_bytes, bytes_to_bits
@@ -412,8 +413,10 @@ def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
     counts. strategy: "select" runs every configured rate's own
     demodulate -> deinterleave -> depuncture and selects per frame;
     "gather" demodulates once under all modulations and gathers through
-    the rate's table (_anyrate_tables). Same outputs. The
-    FUN_OFDM_ANYRATE variable is not read. Returns (payload
+    the rate's table (_anyrate_tables). Same outputs. On the card both
+    names take one kernel (ops/softbits_cuda.softbits, gather's soft
+    streams in one pass); the strategy picks the plain version for CPU
+    tensors. The FUN_OFDM_ANYRATE variable is not read. Returns (payload
     (..., max_length), crc_ok, service, viterbi_exact).
     """
     if strategy not in ("select", "gather"):
@@ -433,10 +436,16 @@ def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
     dbps = torch.tensor([params_for(r).dbps for r in rates], device=dev)
     nbits = _frame_nbits(lengths_c, dbps[ridx])
 
-    trace.count("anyrate.rate_passes",
-                ridx.numel() * (len(rates) if strategy == "select" else 1))
+    on_card = samples[0].is_cuda
+    trace.count("anyrate.rate_passes", ridx.numel() * (
+        len(rates) if strategy == "select" and not on_card else 1))
     with trace.span("ppdu.anyrate_coded"):
-        if strategy == "select":
+        if on_card:
+            lead = samples[0].shape[:-1]
+            trace.count("anyrate.kernel_slots", lead.numel())
+            coded = softbits_cuda.softbits(samples, rates, ridx.expand(lead),
+                                           max_length)
+        elif strategy == "select":
             coded = _anyrate_coded_select(samples, rates, ridx, 2 * nbits_max)
         else:
             coded = _anyrate_coded_gather(samples, rates, ridx, max_length)

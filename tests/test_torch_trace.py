@@ -392,3 +392,22 @@ def test_anyrate_capture_tree_and_counters(tracer, strategy, passes):
     assert counters == {"dropped": 0, "anyrate.slots": 2 * slots,
                         "anyrate.symbols": 2 * slots * nsym_max,
                         "anyrate.rate_passes": 2 * slots * passes}
+
+
+@pytest.mark.parametrize("strategy,passes", [("select", 11), ("gather", 1)])
+def test_anyrate_kernel_slots_not_counted_on_the_cpu(tracer, strategy,
+                                                     passes):
+    """On the CPU the universal decode's soft streams come from the plain
+    strategies: anyrate.kernel_slots is never counted, and
+    anyrate.rate_passes counts each strategy's own pipelines."""
+    from fun_ofdm_tpu_torch.models import ppdu
+    from fun_ofdm_tpu_torch.rates import ALL_RATES, params_for
+
+    nsym_max = max(params_for(r).num_symbols(LENGTH) for r in ALL_RATES)
+    z = torch.zeros(3, nsym_max * 48)
+    tracer.enable()
+    ppdu.decode_data_anyrate_p((z, z), ALL_RATES, [0, 5, 10], [LENGTH] * 3,
+                               LENGTH, strategy=strategy)
+    _, counters = tracer.take()
+    assert counters.get("anyrate.kernel_slots", 0) == 0
+    assert counters["anyrate.rate_passes"] == 3 * passes
