@@ -91,9 +91,7 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      FileSink as sc16 and read back through FileSource -> Receiver; 64
      frames over UdpSink -> UdpSource on 127.0.0.1 in every wire format,
      sent at 0.5 MS/s and decoded once the source holds them (a missing
-     frame fails the phase unless the source counted lost samples); phase
-     8's stream once more with the any-rate decoder's
-     "gather" strategy, the same packets and counters as "select"; and
+     frame fails the phase unless the source counted lost samples); and
      the examples sim and transceiver at their defaults as subprocesses
      ("Received 100 packets", "Received 10/10 packets"); then, live,
      examples.rx listening on UDP and examples.tx --pace sending it 64
@@ -131,14 +129,14 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
      kernel's device time (torch.profiler) and the bound (the filter's
      FP64 FMAs at the card's FP64 rate, or its bytes);
  17. the universal decode's soft-stream kernel (csrc/softbits.cu, through
-     ops/softbits_cuda.softbits) against both plain versions on the card
+     ops/softbits_cuda.softbits) against its plain version on the card
      at the universal capture's shape (100 slots x 1,368 symbols, all 11
      rates, max_length 4095; the points as the real and imaginary views of
      a complex64 tensor): equal to _anyrate_coded_gather over the whole
-     output and to _anyrate_coded_select up to each slot's rate's end,
-     with the slots all RATE_3_4_QAM16 (the capture cell's frames), all
-     RATE_1_2_BPSK (the most points read) and of random rates; the kernel
-     and both plain versions timed (CUDA events), the kernel's device time
+     output, the erasure past each slot's rate's end, with the slots all
+     RATE_3_4_QAM16 (the capture cell's frames), all RATE_1_2_BPSK (the
+     most points read) and of random rates; the kernel and its plain
+     version timed (CUDA events), the kernel's device time
      (torch.profiler) and its bound (the output written and the points
      read, 8 bytes a point, at the card's memory rate).
 The phases run in the order 1-3, 16, 17, 4-9, 14, 15, 10, 13, 11, 12. Each
@@ -565,8 +563,8 @@ def detect_phase() -> list:
 
 
 def softbits_case(name, samples, rates, ridx, max_length, reps=50):
-    """The soft-stream kernel vs both plain versions on one input, timed:
-    all three through CUDA events, the kernel's device time through the
+    """The soft-stream kernel vs its plain version on one input, timed:
+    both through CUDA events, the kernel's device time through the
     profiler, and its bound (bytes)."""
     from fun_ofdm_tpu_torch.models import ppdu
     from fun_ofdm_tpu_torch.ops import softbits_cuda
@@ -579,21 +577,16 @@ def softbits_case(name, samples, rates, ridx, max_length, reps=50):
     got = kernel()
     row = got.shape[-1]
     gather = ppdu._anyrate_coded_gather(samples, rates, ridx, max_length)
-    select = ppdu._anyrate_coded_select(samples, rates, ridx, row)
     n_coded = torch.tensor([2 * params_for(r).num_data_bits(max_length)
                             for r in rates], device=ridx.device)[ridx]
     inside = torch.arange(row, device=ridx.device) < n_coded[:, None]
     rec = {"case": name, "shape": list(got.shape),
            "equal_gather": bool(torch.equal(got, gather)),
-           "equal_select_inside": bool(torch.equal(got[inside],
-                                                   select[inside])),
            "erasure_outside": bool((got[~inside] == 127).all())}
-    del gather, select
+    del gather
     rec["ms"] = cuda_ms(kernel, reps=reps)
     rec["gather_ms"] = cuda_ms(lambda: ppdu._anyrate_coded_gather(
         samples, rates, ridx, max_length), reps=3)
-    rec["select_ms"] = cuda_ms(lambda: ppdu._anyrate_coded_select(
-        samples, rates, ridx, row), reps=3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -610,16 +603,15 @@ def softbits_case(name, samples, rates, ridx, max_length, reps=50):
     rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
     rec["bound_by"] = "bytes"
     print("softbits vs plain:", json.dumps(rec), flush=True)
-    if not (rec["equal_gather"] and rec["equal_select_inside"]
-            and rec["erasure_outside"]):
+    if not (rec["equal_gather"] and rec["erasure_outside"]):
         raise AssertionError(f"the soft-stream kernel disagrees with its "
-                             f"plain versions: {rec}")
+                             f"plain version: {rec}")
     return rec
 
 
 def softbits_phase() -> list:
     """Phase 17: the universal decode's soft-stream kernel
-    (csrc/softbits.cu) against both plain versions on the card, at the
+    (csrc/softbits.cu) against its plain version on the card, at the
     universal capture's shape."""
     from fun_ofdm_tpu_torch.ops import softbits_cuda
     from fun_ofdm_tpu_torch.rates import ALL_RATES, Rate, params_for
@@ -1053,9 +1045,8 @@ def sparse_stream_phase() -> dict:
     return rec
 
 
-def all_rates_phase(strategy: str = "select") -> dict:
-    """The Receiver default: all 11 rates, universal decode, by the
-    any-rate decoder's `strategy`."""
+def all_rates_phase() -> dict:
+    """The Receiver default: all 11 rates, universal decode."""
     from fun_ofdm_tpu_torch.config import ChainParams
     from fun_ofdm_tpu_torch.models import tx
     from fun_ofdm_tpu_torch.rates import ALL_RATES
@@ -1081,7 +1072,7 @@ def all_rates_phase(strategy: str = "select") -> dict:
     def chain():
         return ReceiverChain(rates=ALL_RATES, max_length=LENGTH,
                              params=params, ingest_dtype="int10",
-                             device=DEVICE, anyrate_strategy=strategy)
+                             device=DEVICE)
 
     step = chain().step
     n_whole = s_re.size // step * step
@@ -1100,7 +1091,7 @@ def all_rates_phase(strategy: str = "select") -> dict:
     pkts, launches = launches_of(lambda: run_chain(c, pieces))
     wall_s = time.perf_counter() - t0
     check_packets(pkts, planted, "all-rates stream")
-    rec = {"strategy": strategy, "samples": n_whole, "frames": len(planted),
+    rec = {"samples": n_whole, "frames": len(planted),
            "delivered": len(pkts), "step": step, "wall_s": wall_s,
            "samples_per_s": n_whole / wall_s, "classes": [
                [r.name for r in cls] for cls in c._classes],
@@ -1815,11 +1806,10 @@ def live_udp_examples(root: Path, frames: int = API_UDP_FRAMES) -> dict:
     return rec
 
 
-def api_phase(select_rec: dict) -> dict:
+def api_phase() -> dict:
     """Phase 13: the user API at full width (see the module docstring).
-    select_rec is phase 8's record, held against the gather pass. The
-    record's "launches" are the kernels' counts over the whole phase, set
-    to 0 at its start."""
+    The record's "launches" are the kernels' counts over the whole phase,
+    set to 0 at its start."""
     from fun_ofdm_tpu_torch.api import CaptureSink, Transmitter
     from fun_ofdm_tpu_torch.rates import ALL_RATES, Rate, params_for
     from fun_ofdm_tpu_torch.runtime.io import (FileSink, FileSource,
@@ -1959,29 +1949,8 @@ def api_phase(select_rec: dict) -> dict:
                 usink.close()
             usrc.close()
         print(f"api udp {wire}:", json.dumps(rec["udp"][wire]), flush=True)
-
-    # phase 8's stream by the gather strategy (the pass counts its own
-    # launches from 0)
     torch.cuda.synchronize()
-    launches = read_launches()
-    gather = all_rates_phase("gather")
-    rec["launches"] = {k: v + gather["launches"][k]
-                       for k, v in launches.items()}
-    same = {k: v for k, v in gather["stats"].items()
-            if not k.startswith("time_")} == \
-        {k: v for k, v in select_rec["stats"].items()
-         if not k.startswith("time_")}
-    rec["gather_vs_select"] = {
-        "delivered": [gather["delivered"], select_rec["delivered"]],
-        "same_counters": same,
-        "gather_wall_s": gather["wall_s"],
-        "select_wall_s": select_rec["wall_s"],
-        "gather_busy_share": gather["profile_one_superstep"]["busy_share"],
-        "select_busy_share":
-            select_rec["profile_one_superstep"]["busy_share"]}
-    if not same or gather["delivered"] != select_rec["delivered"]:
-        raise AssertionError(f"gather and select disagree: "
-                             f"{gather['stats']} {select_rec['stats']}")
+    rec["launches"] = read_launches()
     return rec
 
 
@@ -2022,13 +1991,11 @@ def main() -> int:
         for name, count in rec["launches"].items():
             launches[name] += count
     ablate, ab_launches = ablation_phase()
-    api = api_phase(all_rates)
+    api = api_phase()
     for name in ("viterbi_acs", "viterbi_chainback",
                  "viterbi_blocked_decode"):
         if api["launches"][name] == 0:
             raise AssertionError(f"{name} was not launched by the API phase")
-    print("api gather vs select:", json.dumps(api["gather_vs_select"]),
-          flush=True)
     # the examples run in their own processes: their launches are not
     # counted here
     print("examples:", json.dumps([
@@ -2065,8 +2032,7 @@ def main() -> int:
          "source": "fun_ofdm_tpu_torch/csrc/softbits.cu", "replaces": None,
          "launches": launches["softbits"], "cases": softbits,
          "max_abs_err": 0, "ms": softbits[0]["ms"],
-         "plain_ms": {"gather": softbits[0]["gather_ms"],
-                      "select": softbits[0]["select_ms"]},
+         "plain_ms": {"gather": softbits[0]["gather_ms"]},
          "bound_ms": softbits[0]["bound_ms"], "bound_by": "bytes",
          "ptxas": ptxas_report(
              softbits_cuda.library_path().with_suffix(".log").read_text()),

@@ -3,8 +3,9 @@
 The port runs, on an NVIDIA H100, the transmit side (`build_frame_p`
 and, for bursts of mixed lengths, `build_frames_mixed_p`), the dense
 capture receive (frame detection and decode), the header-driven dynamic
-and any-rate decoders (the latter by per-rate "select" or by table
-"gather"), CFO correction, the streaming receiver chain (`runtime.chain.ReceiverChain`),
+and any-rate decoders (the latter's soft streams by one table gather,
+on the card one kernel), CFO correction, the streaming receiver chain
+(`runtime.chain.ReceiverChain`),
 sample I/O over a loopback bus, files and UDP (`runtime.io`), the channel
 simulator with its BER/PER harness (`sim`), and the user API of
 fun_ofdm_tpu: `Transmitter` and `Receiver` (`api`), with the five example

@@ -197,6 +197,9 @@ class Receiver:
     On a GPU the chain's kernel library is built here, before the RX
     thread starts, and both threads run the chain under the chain's
     device.
+
+    The chain's arguments are ReceiverChain's; viterbi_impl is None or
+    "auto", "exact" or "blocked", and the constructor refuses any other.
     """
 
     def __init__(self, callback: Callable[[list], None],

@@ -3,13 +3,11 @@
 //
 // Replaces no Pallas kernel. The JAX package computes this step as XLA
 // array code (fun_ofdm_tpu/models/ppdu.py, decode_data_anyrate_p), and the
-// port ran it as eager PyTorch: under "select" every configured rate's own
-// demodulate -> deinterleave -> depuncture over every slot, then a
-// per-slot select; under "gather" a demodulation under all four
-// modulations and a table gather (models/ppdu._anyrate_coded_select and
-// _anyrate_coded_gather, which stay the plain versions: the wrapper,
-// ops/softbits_cuda.py, is taken for CUDA tensors only). This kernel gives
-// _anyrate_coded_gather's output bit for bit, over the whole tensor.
+// port ran it as eager PyTorch: a demodulation under all four
+// modulations and a table gather (models/ppdu._anyrate_coded_gather,
+// which stays the plain version: the wrapper, ops/softbits_cuda.py, is
+// taken for CUDA tensors only). This kernel gives _anyrate_coded_gather's
+// output bit for bit, over the whole tensor.
 //
 // The function is a gather with erasures. Coded position m of a slot at
 // rate r is the erasure 127 when m >= n_coded (2 * num_data_bits(

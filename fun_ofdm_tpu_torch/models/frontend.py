@@ -317,18 +317,15 @@ def receive_capture_dynamic_p(stream, rate: Rate, max_length: int,
 
 def receive_capture_anyrate_p(stream, rates: tuple[Rate, ...],
                               max_length: int, max_frames: int,
-                              params: ChainParams = DEFAULT_PARAMS,
-                              strategy: str = "select") -> dict:
+                              params: ChainParams = DEFAULT_PARAMS) -> dict:
     """Counterpart of fun_ofdm_tpu's receive_capture_anyrate_p over
     (..., n) planar streams: each frame's rate and length come from its
-    SIGNAL header. strategy: "select" or "gather"
-    (ppdu.decode_data_anyrate_p; same outputs). Same outputs as
-    receive_capture_dynamic_p, plus rate_match."""
+    SIGNAL header. Same outputs as receive_capture_dynamic_p, plus
+    rate_match."""
     rates = tuple(rates)
     return _receive_dynamic(
         torch.complex(*stream),
         max(params_for(r).frame_samples(max_length) for r in rates),
         max_frames, params,
-        lambda s, st: rx_model.decode_frames_anyrate(
-            s, rates, max_length, st, strategy=strategy),
+        lambda s, st: rx_model.decode_frames_anyrate(s, rates, max_length, st),
         ("payload", "hdr_length", "rate_field", "rate_match"))

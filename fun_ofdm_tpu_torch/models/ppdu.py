@@ -376,7 +376,7 @@ def _anyrate_coded_gather(samples, rates, ridx, max_length: int):
     """Each frame's depunctured soft stream by one gather: every sample
     demodulated under all four modulations (ops/qam.demodulate_all_p),
     then the table of the frame's rate picks the lanes, -1 giving an
-    erasure. Equal to _anyrate_coded_select on the same frames."""
+    erasure."""
     soft_all = qam.demodulate_all_p(samples)               # (..., m, 13)
     flat13 = soft_all.reshape(*soft_all.shape[:-2], -1)
     tab = _anyrate_tables_on(rates, max_length, flat13.device)[ridx]
@@ -384,44 +384,22 @@ def _anyrate_coded_gather(samples, rates, ridx, max_length: int):
     return torch.where(tab >= 0, picked.to(torch.int32), puncture.ERASURE)
 
 
-def _anyrate_coded_select(samples, rates, ridx, n_coded_max: int):
-    """Each frame's depunctured soft stream at the rate of its header: every
-    configured rate's own demodulate -> deinterleave -> depuncture, padded
-    or cut to n_coded_max with erasures, then selected per frame by
-    ridx (...,), an index into rates."""
-    acc = None
-    for i, r in enumerate(rates):
-        soft = interleave.deinterleave(qam.demodulate_p(samples, r))
-        cur = puncture.depuncture(soft, r).to(torch.int32)[..., :n_coded_max]
-        cur = torch.nn.functional.pad(
-            cur, (0, n_coded_max - cur.shape[-1]), value=puncture.ERASURE)
-        sel = (ridx == i)[..., None]
-        acc = torch.where(sel, cur, puncture.ERASURE if acc is None else acc)
-    return acc
-
-
 def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
                           lengths, max_length: int,
-                          viterbi_impl: str | None = None,
-                          strategy: str = "select"):
+                          viterbi_impl: str | None = None):
     """Universal payload decode: rate and length are per-frame values.
 
     Counterpart of fun_ofdm_tpu's decode_data_anyrate_p. samples:
     (re, im) of (..., nsym_max*48), nsym_max the largest num_symbols
     (max_length) over `rates`; rate_idx: (...,) index into `rates` (out
     of range: unknown rate, crc_ok False); lengths: (...,) payload byte
-    counts. strategy: "select" runs every configured rate's own
-    demodulate -> deinterleave -> depuncture and selects per frame;
-    "gather" demodulates once under all modulations and gathers through
-    the rate's table (_anyrate_tables). Same outputs. On the card both
-    names take one kernel (ops/softbits_cuda.softbits, gather's soft
-    streams in one pass); the strategy picks the plain version for CPU
-    tensors. The FUN_OFDM_ANYRATE variable is not read. Returns (payload
-    (..., max_length), crc_ok, service, viterbi_exact).
+    counts. The soft streams are fun_ofdm_tpu's "gather": every sample
+    demodulated once under all modulations, then gathered through the
+    rate's table (_anyrate_tables). On the card one kernel builds them
+    (ops/softbits_cuda.softbits); CPU tensors take its plain version,
+    _anyrate_coded_gather. The FUN_OFDM_ANYRATE variable is not read.
+    Returns (payload (..., max_length), crc_ok, service, viterbi_exact).
     """
-    if strategy not in ("select", "gather"):
-        raise ValueError(f"strategy must be 'select' or 'gather', "
-                         f"not {strategy!r}")
     rates = tuple(rates)
     nbits_max = max(params_for(r).num_data_bits(max_length) for r in rates)
     n_bytes_max = max(params_for(r).num_data_bytes(max_length)
@@ -436,17 +414,12 @@ def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
     dbps = torch.tensor([params_for(r).dbps for r in rates], device=dev)
     nbits = _frame_nbits(lengths_c, dbps[ridx])
 
-    on_card = samples[0].is_cuda
-    trace.count("anyrate.rate_passes", ridx.numel() * (
-        len(rates) if strategy == "select" and not on_card else 1))
     with trace.span("ppdu.anyrate_coded"):
-        if on_card:
+        if samples[0].is_cuda:
             lead = samples[0].shape[:-1]
             trace.count("anyrate.kernel_slots", lead.numel())
             coded = softbits_cuda.softbits(samples, rates, ridx.expand(lead),
                                            max_length)
-        elif strategy == "select":
-            coded = _anyrate_coded_select(samples, rates, ridx, 2 * nbits_max)
         else:
             coded = _anyrate_coded_gather(samples, rates, ridx, max_length)
     decoded_bits, exact_ok = viterbi.viterbi_decode(

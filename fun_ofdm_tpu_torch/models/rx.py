@@ -315,15 +315,13 @@ def decode_frames_dynamic(stream: torch.Tensor, rate: Rate, max_length: int,
 def decode_frames_anyrate(stream: torch.Tensor, rates: tuple[Rate, ...],
                           max_length: int, starts: torch.Tensor,
                           viterbi_impl: str | None = None,
-                          cfo_correct: bool = False,
-                          strategy: str = "select") -> dict:
+                          cfo_correct: bool = False) -> dict:
     """Universal decode of the frames at starts (..., F) of stream
     (..., n): rate and length both come from each frame's SIGNAL field.
     Symbols are extracted at the slowest configured rate's geometry, so
     the stream must cover that rate's max_length frame from each start.
-    strategy: "select" or "gather" (ppdu.decode_data_anyrate_p; same
-    outputs). Same outputs as decode_frames_dynamic; rate_match is True
-    where the header's rate is one of `rates`."""
+    Same outputs as decode_frames_dynamic; rate_match is True where the
+    header's rate is one of `rates`."""
     rates = tuple(rates)
     nsym_max = max(params_for(r).num_symbols(max_length) for r in rates)
     slots = starts.numel()
@@ -339,7 +337,7 @@ def decode_frames_anyrate(stream: torch.Tensor, rates: tuple[Rate, ...],
     rate_match = rate_idx >= 0
     payload, crc_ok, service, exact = ppdu.decode_data_anyrate_p(
         (rest.real, rest.imag), rates, rate_idx, hdr_length, max_length,
-        viterbi_impl=viterbi_impl, strategy=strategy)
+        viterbi_impl=viterbi_impl)
     return {
         "payload": payload,
         "crc_ok": crc_ok & header_ok & rate_match,
@@ -374,10 +372,8 @@ def decode_frame_dynamic_p(samples, rate: Rate, max_length: int, start=0,
 def decode_frame_anyrate_p(samples, rates: tuple[Rate, ...],
                            max_length: int, start=0,
                            cfo_correct: bool = False,
-                           viterbi_impl: str | None = None,
-                           strategy: str = "select") -> dict:
+                           viterbi_impl: str | None = None) -> dict:
     """Planar counterpart of fun_ofdm_tpu's decode_frame_anyrate_p (see
     decode_frame_dynamic_p)."""
     return _one_frame(lambda s, st: decode_frames_anyrate(
-        s, rates, max_length, st, viterbi_impl, cfo_correct, strategy),
-        samples, start)
+        s, rates, max_length, st, viterbi_impl, cfo_correct), samples, start)

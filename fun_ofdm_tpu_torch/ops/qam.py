@@ -133,7 +133,7 @@ def demodulate_all_p(symbols) -> torch.Tensor:
     bits, per sample [BPSK(1) | QPSK I,Q(2) | 16-QAM I0,I1,Q0,Q1(4) |
     64-QAM I0..2,Q0..2(6)] (see ALL_SOFT_OFFSET); each modulation's part
     equals demodulate_p's. The rate-independent half of the any-rate
-    decoder's "gather" strategy (models/ppdu.decode_data_anyrate_p).
+    decoder's soft streams on the CPU (models/ppdu._anyrate_coded_gather).
     """
     sym_re, sym_im = symbols
     parts = [_axis_soft_decode(sym_re, 1, 1.0)]            # BPSK: re only

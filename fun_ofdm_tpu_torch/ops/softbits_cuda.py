@@ -9,9 +9,9 @@ is models/ppdu._anyrate_coded_gather's, bit for bit; the note at the top of
 csrc/softbits.cu has the design and what bounds it. The source is compiled
 at first use (ops/nvcc.py); importing this module builds nothing.
 
-The plain versions are models/ppdu._anyrate_coded_select and
-_anyrate_coded_gather, which decode_data_anyrate_p runs for CPU tensors;
-for CUDA tensors it calls `softbits` here under either strategy.
+The plain version is models/ppdu._anyrate_coded_gather, which
+decode_data_anyrate_p runs for CPU tensors; for CUDA tensors it calls
+`softbits` here.
 `softbits` checks its tensors, launches on the current CUDA stream without
 a host synchronisation, raises when the launch fails, and counts its calls
 in `launches` (one launch a call). The per-rate parameters are built on the

@@ -247,10 +247,8 @@ def viterbi_decode_scan(soft: torch.Tensor, nbits: int,
         *batch_shape, nbits)
 
 
-#: the dispatcher's names for the exact decode and for the block-overlap
-#: decode (fun_ofdm_tpu's names, so a caller's setting carries across)
-EXACT_IMPLS = (None, "auto", "exact", "scan", "pallas")
-BLOCKED_IMPL = "pallas-blocked"
+#: the dispatcher's names: the exact decode and the block-overlap decode
+IMPLS = (None, "exact", "blocked")
 
 #: below this many data bits the blocked request decodes exactly, as in
 #: fun_ofdm_tpu (a header is never split into blocks)
@@ -261,11 +259,10 @@ def viterbi_decode(soft: torch.Tensor, nbits: int, impl: str | None = None,
                    nbits_dynamic=None, return_exact: bool = False):
     """Decode (..., 2*(nbits+6)) soft bits to (..., nbits) int32 bits.
 
-    Counterpart of fun_ofdm_tpu's dispatcher. impl: None, "auto",
-    "exact", "scan" and "pallas" all select the exact decode: on a CUDA
-    tensor the kernels (one launch pair for the whole flattened batch),
-    on a CPU tensor the plain twin. "pallas-blocked" selects the
-    block-overlap decode (ops/viterbi_blocked) for trellises of at least
+    Counterpart of fun_ofdm_tpu's dispatcher. impl: None or "exact"
+    selects the exact decode: on a CUDA tensor the kernels (one launch
+    pair for the whole flattened batch), on a CPU tensor the plain twin.
+    "blocked" selects the block-overlap decode (ops/viterbi_blocked) for trellises of at least
     BLOCKED_MIN_NBITS bits: its kernels on a CUDA tensor; on a CPU tensor
     the exact twin with an all-True flag, as fun_ofdm_tpu does off the
     TPU. Unlike fun_ofdm_tpu, the port reads no FUN_OFDM_VITERBI
@@ -277,12 +274,12 @@ def viterbi_decode(soft: torch.Tensor, nbits: int, impl: str | None = None,
     is exact (always for the exact decode; the merge guard's verdict for
     the block-overlap decode).
     """
-    if impl not in EXACT_IMPLS and impl != BLOCKED_IMPL:
+    if impl not in IMPLS:
         raise ValueError(f"unknown Viterbi impl {impl!r}")
     if soft.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no Viterbi for device {soft.device}")
     batch_shape = soft.shape[:-1]
-    if (impl == BLOCKED_IMPL and nbits >= BLOCKED_MIN_NBITS
+    if (impl == "blocked" and nbits >= BLOCKED_MIN_NBITS
             and soft.device.type == "cuda"):
         from . import viterbi_blocked
 

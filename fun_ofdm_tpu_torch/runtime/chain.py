@@ -141,17 +141,15 @@ def _headers_block(wr, wi, off: int, step: int, max_frames: int, n_hdr: int,
     return torch.cat([rows, trailer], dim=-2)
 
 
-def _impl_for_bucket(impl: str, bucket: int) -> str | None:
-    """Resolve the chain's viterbi_impl knob to a per-bucket backend:
-    "auto" takes the block-overlap decode for buckets of <= 64 frames
-    (a small batch leaves the card's SMs idle and each frame's ~12k-step
-    chain serial; the blocks cut the chain ~12x) and the exact decode
-    above; "exact" always the exact decode; any other name goes to
-    ops/viterbi.viterbi_decode as it is."""
+def _impl_for_bucket(impl: str, bucket: int) -> str:
+    """Resolve the chain's viterbi_impl knob to a per-bucket decode for
+    ops/viterbi.viterbi_decode: "auto" takes the block-overlap decode
+    for buckets of <= 64 frames (a small batch leaves the card's SMs
+    idle and each frame's ~12k-step chain serial; the blocks cut the
+    chain ~12x) and the exact decode above; "exact" and "blocked" stand
+    for themselves."""
     if impl == "auto":
-        return "pallas-blocked" if bucket <= 64 else None
-    if impl == "exact":
-        return None
+        return "blocked" if bucket <= 64 else "exact"
     return impl
 
 
@@ -167,15 +165,13 @@ def _pack_decode_rows(out: dict) -> torch.Tensor:
 
 
 def _build_decode_fn(rate, bucket: int, max_length: int, impl: str,
-                     cfo_correct: bool = False,
-                     anyrate_strategy: str = "select"):
+                     cfo_correct: bool = False):
     """Payload pass for one bucket: fn(wr, wi, starts) -> (bucket,
     max_length + 5) uint8 rows (see _pack_decode_rows). rate: a Rate
     (single-rate decode) or a tuple of Rates (any-rate decode). Multi-
     channel chains pass their (C, W) window with starts offset by
     channel * W; the flattened window serves every channel in one
-    decode. cfo_correct: derotate every frame by its CFO estimate.
-    anyrate_strategy: the any-rate decode's "select" or "gather"."""
+    decode. cfo_correct: derotate every frame by its CFO estimate."""
     vimpl = _impl_for_bucket(impl, bucket)
 
     def fn(wr, wi, starts):
@@ -183,8 +179,7 @@ def _build_decode_fn(rate, bucket: int, max_length: int, impl: str,
         if isinstance(rate, tuple):
             out = rx.decode_frames_anyrate(stream, rate, max_length, starts,
                                            viterbi_impl=vimpl,
-                                           cfo_correct=cfo_correct,
-                                           strategy=anyrate_strategy)
+                                           cfo_correct=cfo_correct)
         else:
             out = rx.decode_frames_dynamic(stream, rate, max_length, starts,
                                            viterbi_impl=vimpl,
@@ -299,15 +294,11 @@ class ReceiverChain:
         See INGEST_FORMATS.
       viterbi_impl: payload Viterbi: None or "auto" (the guarded
         block-overlap decode for buckets of <= 64 frames, with exact
-        re-decode of flagged frames; the exact decode above), "exact",
-        "pallas"/"scan" (exact), "pallas-blocked" (always blocked,
-        still guarded). The FUN_OFDM_VITERBI variable is not read.
+        re-decode of flagged frames; the exact decode above), "exact"
+        or "blocked" (always blocked, still guarded). The
+        FUN_OFDM_VITERBI variable is not read.
       decode_mode: "auto" (universal any-rate decode with several rates,
         single-rate otherwise), "universal" or "per-rate".
-      anyrate_strategy: how the universal decode assembles each frame's
-        coded stream, "select" (default) or "gather"
-        (models/ppdu.decode_data_anyrate_p); same packets either way. The
-        FUN_OFDM_ANYRATE variable is not read.
       channels: synchronized streams; process_samples then takes (C, n)
         buffers, all channels share each device pass, and packets carry
         their channel index.
@@ -327,8 +318,7 @@ class ReceiverChain:
                  decode_mode: str = "auto",
                  channels: int = 1,
                  prewarm_exact: bool | None = None,
-                 device="cuda",
-                 anyrate_strategy: str = "select"):
+                 device="cuda"):
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no chain for device {self.device}")
@@ -354,13 +344,12 @@ class ReceiverChain:
         if self.channels < 1:
             raise ValueError("channels must be >= 1")
         self.viterbi_impl = viterbi_impl or "auto"
+        if self.viterbi_impl not in ("auto", "exact", "blocked"):
+            raise ValueError("viterbi_impl must be auto|exact|blocked")
         if decode_mode not in ("auto", "universal", "per-rate"):
             raise ValueError("decode_mode must be auto|universal|per-rate")
         self.decode_mode = ("universal" if len(rates) > 1 else "per-rate") \
             if decode_mode == "auto" else decode_mode
-        if anyrate_strategy not in ("select", "gather"):
-            raise ValueError("anyrate_strategy must be select|gather")
-        self.anyrate_strategy = anyrate_strategy
         self.stride = params.chunk_size
         k = params.strides_per_step
         if k is None:
@@ -440,7 +429,7 @@ class ReceiverChain:
         if rate is None:
             rate = self.rates
         return _build_decode_fn(rate, bucket, self.max_length, impl,
-                                self.cfo_correct, self.anyrate_strategy)
+                                self.cfo_correct)
 
     # --- streaming API ----------------------------------------------------
 

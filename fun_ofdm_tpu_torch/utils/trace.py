@@ -60,8 +60,7 @@ The spans, by layer (the names of PERF.md's list of layers):
                     extraction, FFT, equalisation and the SIGNAL header
                     of every slot at the slowest rate's longest frame
   ppdu.anyrate_coded   the universal decode's soft streams at each frame's
-                    rate (on the card one kernel launch; on the CPU
-                    "select": every rate's own pipeline, "gather": one
+                    rate (on the card one kernel launch; on the CPU one
                     all-modulation demodulation and a table gather)
   viterbi.exact, viterbi.blocked   the CUDA Viterbi's C entry points
 
@@ -70,10 +69,6 @@ The counters, all known on the host (no sync):
   anyrate.slots        slots the universal decode decoded
   anyrate.symbols      data symbols it extracted and equalised: slots x
                        the slowest rate's symbols at max_length
-  anyrate.rate_passes  soft-stream pipelines it ran: on the card one a
-                       slot (the kernel, either strategy); on the CPU
-                       under "select" one per configured rate a slot,
-                       under "gather" one a slot
   anyrate.kernel_slots slots whose soft streams the kernel of
                        csrc/softbits.cu built (ops/softbits_cuda): equal
                        to anyrate.slots on the card, never counted on the

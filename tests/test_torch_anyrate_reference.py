@@ -8,8 +8,7 @@ lengths spread over 1..max_length, every second frame carrying AWGN at
 12.5 dB after its preamble, zeros between them: the port's starts equal
 the planted ones and the plain receiver's detections, and per slot its
 header_ok, rate_field, hdr_length, crc_ok and payload bytes equal the
-plain receiver's decode of the same float32 samples in float64, exactly,
-under both strategies.
+plain receiver's decode of the same float32 samples in float64, exactly.
 
 On the CPU max_length is 256: there the port and the plain receiver run
 their Viterbi trellises step by step in Python. The test marked
@@ -34,7 +33,6 @@ from phybench.reference import phy
 CPU_MAX_LENGTH = 256
 SNR_DB = 12.5
 GAP = 400
-STRATEGIES = ("select", "gather")
 
 
 def capture(seed: int, max_length: int, per_rate: int = 2, extra=()):
@@ -85,28 +83,24 @@ def check_against_reference(stream, starts, frames, max_length, device):
                     ref.crc_ok[k], ref.payload[k]) == (True, r, n, True, pay)
     assert not ref.crc_ok.all()       # the noise fails some frames
     planar = tuple(t.to(device) for t in stream)
-    outs = {s: {k: v.cpu() for k, v in frontend.receive_capture_anyrate_p(
-        planar, ALL_RATES, max_length, len(frames) + 4, strategy=s).items()}
-        for s in STRATEGIES}
-    for s, out in outs.items():
-        f = len(frames)
-        valid = out["valid"][0]
-        assert valid[:f].all() and not valid[f:].any(), s
-        assert out["starts"][0, :f].tolist() == starts.tolist(), s
-        hdr_ok = out["header_ok"][0, :f].numpy()
-        assert hdr_ok.tolist() == ref.header_ok.tolist(), s
-        fields = out["rate_field"][0, :f].numpy()
-        lengths = out["hdr_length"][0, :f].numpy()
-        for k in np.flatnonzero(ref.header_ok):
-            assert (fields[k], lengths[k]) == (
-                phy.RATES[int(ref.rate[k])][1], ref.length[k]), (s, k)
-        crc_ok = out["crc_ok"][0, :f].numpy()
-        assert crc_ok.tolist() == ref.crc_ok.tolist(), s
-        payload = out["payload"][0, :f].to(torch.uint8).numpy()
-        for k in np.flatnonzero(crc_ok):
-            assert payload[k, :lengths[k]].tobytes() == ref.payload[k], (s, k)
-    for k in outs["select"]:
-        assert torch.equal(outs["select"][k], outs["gather"][k]), k
+    out = {k: v.cpu() for k, v in frontend.receive_capture_anyrate_p(
+        planar, ALL_RATES, max_length, len(frames) + 4).items()}
+    f = len(frames)
+    valid = out["valid"][0]
+    assert valid[:f].all() and not valid[f:].any()
+    assert out["starts"][0, :f].tolist() == starts.tolist()
+    hdr_ok = out["header_ok"][0, :f].numpy()
+    assert hdr_ok.tolist() == ref.header_ok.tolist()
+    fields = out["rate_field"][0, :f].numpy()
+    lengths = out["hdr_length"][0, :f].numpy()
+    for k in np.flatnonzero(ref.header_ok):
+        assert (fields[k], lengths[k]) == (
+            phy.RATES[int(ref.rate[k])][1], ref.length[k]), k
+    crc_ok = out["crc_ok"][0, :f].numpy()
+    assert crc_ok.tolist() == ref.crc_ok.tolist()
+    payload = out["payload"][0, :f].to(torch.uint8).numpy()
+    for k in np.flatnonzero(crc_ok):
+        assert payload[k, :lengths[k]].tobytes() == ref.payload[k], k
 
 
 @pytest.mark.parametrize("seed", [15, 16])

@@ -10,6 +10,7 @@ running RX thread, and passes a capture file between the two packages in
 both directions.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -21,6 +22,7 @@ import torch
 import fun_ofdm_tpu_torch
 from fun_ofdm_tpu import api as j_api
 from fun_ofdm_tpu.models import tx as j_tx
+from fun_ofdm_tpu.runtime import chain as j_chain
 from fun_ofdm_tpu.runtime import io as j_io
 from fun_ofdm_tpu_torch import api
 from fun_ofdm_tpu_torch.api import CaptureSink, Receiver, Transmitter
@@ -388,6 +390,9 @@ def test_receiver_passes_its_arguments_to_the_chain():
 
 
 def test_chain_gather_strategy_delivers_the_same_packets():
+    """The universal chain, whose soft streams come from the one gather
+    path, delivers the planted burst, and the JAX chain on the same stream
+    delivers the same packets with the same counts."""
     rates = (Rate.RATE_1_2_BPSK, Rate.RATE_3_4_QPSK, Rate.RATE_3_4_QAM16,
              Rate.RATE_2_3_QAM64)
     lengths = [5, 64, 30, 47, 1, 22]
@@ -398,22 +403,20 @@ def test_chain_gather_strategy_delivers_the_same_packets():
     stream = np.concatenate([np.zeros(500, np.complex64),
                              sink.re + 1j * sink.im,
                              np.zeros(6000, np.complex64)])
-    out = {}
-    for strategy in ("select", "gather"):
-        chain = ReceiverChain(rates=rates, max_length=64, device="cpu",
-                              anyrate_strategy=strategy)
-        assert chain.decode_mode == "universal"
-        pkts = chain.process_samples(stream) + chain.flush()
-        out[strategy] = (pkts, chain.stats.as_dict())
-    assert [(p.payload, p.rate) for p in out["gather"][0]] == \
+    chain = ReceiverChain(rates=rates, max_length=64, device="cpu")
+    assert chain.decode_mode == "universal"
+    pkts = chain.process_samples(stream) + chain.flush()
+    assert [(p.payload, p.rate) for p in pkts] == \
         list(zip(payloads, per_frame))
-    assert out["gather"][0] == out["select"][0]
-    for key, val in out["select"][1].items():
-        if not key.startswith("time_"):
-            assert out["gather"][1][key] == val, key
-    with pytest.raises(ValueError, match="anyrate_strategy"):
-        ReceiverChain(rates=rates, max_length=64, device="cpu",
-                      anyrate_strategy="table")
+    j = j_chain.ReceiverChain(rates=rates, max_length=64)
+    j_pkts = j.process_samples(stream) + j.flush()
+
+    def key(ps):
+        return [(p.payload, p.rate, p.length, p.start) for p in ps]
+    assert key(pkts) == key(j_pkts)
+    want = {k: v for k, v in dataclasses.asdict(j.stats).items()
+            if not k.startswith("time_")}
+    assert chain.stats.as_dict() == want
 
 
 # ------------------------------------------------------- cross-backend ----

@@ -406,27 +406,3 @@ def test_receiver_loopback_on_the_card(cuda_device):
     assert [(p.payload, p.rate) for p in received] == list(zip(payloads,
                                                                 rates))
     assert rx.chain.stats.crc_fail == 0
-
-
-def test_gather_strategy_equals_select_on_the_card(cuda_device):
-    rng = np.random.default_rng(71)
-    rates = (Rate.RATE_1_2_BPSK, Rate.RATE_3_4_QPSK, Rate.RATE_3_4_QAM16,
-             Rate.RATE_2_3_QAM64)
-    frames = [tx.build_frame(torch.from_numpy(
-        rng.integers(0, 256, n, dtype=np.uint8)).to(cuda_device), r)
-        for n, r in zip((100, 7, 64, 90), rates)]
-    starts, pos, parts = [], 200, [torch.zeros(200, device=cuda_device)]
-    for f in frames:
-        starts.append(pos)
-        parts += [f, torch.zeros(300, device=cuda_device)]
-        pos += f.numel() + 300
-    stream = torch.cat([p.to(torch.complex64) for p in parts]
-                       + [torch.zeros(9000, dtype=torch.complex64,
-                                      device=cuda_device)])
-    st = torch.tensor(starts, device=cuda_device)
-    sel = frontend.rx_model.decode_frames_anyrate(stream, rates, 100, st)
-    gat = frontend.rx_model.decode_frames_anyrate(stream, rates, 100, st,
-                                                  strategy="gather")
-    assert bool(sel["crc_ok"].all())
-    for key in sel:
-        assert torch.equal(sel[key], gat[key]), key

@@ -4,8 +4,8 @@ Covers the dynamic and any-rate decoders and what they stand on: the
 dynamic CRC, the detection drop counter, the Viterbi dispatcher's
 impl/return_exact, the block-overlap decode (its plain version against
 the Pallas function in interpret mode, merge flags included), the
-dynamic and any-rate frame decoders (the latter by "select" and by
-"gather", with the all-modulation demodulator and the gather tables), the
+dynamic and any-rate frame decoders (the latter with the all-modulation
+demodulator and the gather tables, against both of JAX's strategies), the
 header pass and the two header-driven capture receives. The same numpy inputs go to both sides.
 Integer and boolean outputs must match exactly; a payload is compared
 where its frame's CRC holds (elsewhere it decodes whatever lies at the
@@ -276,13 +276,11 @@ def test_blocked_dynamic_lengths_match_jax():
         np.testing.assert_array_equal(got[i, :ln], ref[i, :ln])
 
 
-@pytest.mark.parametrize("impl", [None, "auto", "exact", "scan", "pallas",
-                                  "pallas-blocked"])
+@pytest.mark.parametrize("impl", [None, "exact", "blocked"])
 def test_dispatcher_impls_on_cpu(impl):
     """Every impl name decodes exactly on the CPU with an all-True flag
     (the blocked request runs the exact twin, as fun_ofdm_tpu does off
-    the TPU). JAX's compiled "pallas" has no CPU form; its bits are the
-    scan's."""
+    the TPU). The port's "blocked" is fun_ofdm_tpu's "pallas-blocked"."""
     rng = np.random.default_rng(5)
     nbits = 300
     soft = _noisy_soft(rng, 3, nbits)
@@ -292,7 +290,7 @@ def test_dispatcher_impls_on_cpu(impl):
         nbits_dynamic=torch.from_numpy(nbd), return_exact=True)
     j_bits, j_exact = j_viterbi.viterbi_decode(
         jnp.asarray(soft), nbits,
-        impl={"auto": None, "pallas": "scan"}.get(impl, impl),
+        impl={"blocked": "pallas-blocked"}.get(impl, impl),
         nbits_dynamic=jnp.asarray(nbd), return_exact=True)
     for i, n in enumerate(nbd):
         np.testing.assert_array_equal(_np(bits)[i, :n],
@@ -301,10 +299,14 @@ def test_dispatcher_impls_on_cpu(impl):
     assert _np(exact).all()
 
 
-def test_dispatcher_rejects_unknown_impl():
+@pytest.mark.parametrize("impl", ["auto", "scan", "pallas",
+                                  "pallas-blocked"])
+def test_dispatcher_rejects_unknown_impl(impl):
+    """fun_ofdm_tpu's names and the chain's "auto" are not the
+    dispatcher's."""
     with pytest.raises(ValueError, match="impl"):
         viterbi.viterbi_decode(torch.zeros((1, 48), dtype=torch.int32), 18,
-                               impl="blocked")
+                               impl=impl)
 
 
 # ---------------------------------------------------- frame decoders ---
@@ -357,7 +359,7 @@ def test_decode_frames_dynamic_matches_jax():
     got = rx.decode_frames_dynamic(torch.complex(torch.from_numpy(re),
                                                  torch.from_numpy(im)),
                                    rate, MAX_LENGTH, torch.from_numpy(starts),
-                                   viterbi_impl="pallas-blocked")
+                                   viterbi_impl="blocked")
     _compare_frames(got, want, _FRAME_KEYS)
     # only the in-range frames of the configured rate decode
     crc = _np(got["crc_ok"])
@@ -492,7 +494,7 @@ def test_receive_capture_anyrate_matches_jax():
     assert int(_np(got["crc_ok"]).sum()) == 4
 
 
-# ------------------------------------------- any-rate "gather" strategy ---
+# --------------------------------------------- any-rate soft streams ---
 
 def test_demodulate_all_matches_jax_and_per_rate():
     """tests/test_ops.py's case: the 13-lane vector equals JAX's exactly
@@ -543,22 +545,20 @@ def _anyrate_data_samples(rng, lengths, rate_idx):
 
 
 def test_decode_data_anyrate_gather_equals_select_equals_jax():
-    """Both strategies of the port and both of JAX on the same samples:
-    payload (where the CRC holds), crc_ok, service and the exactness flag
-    are equal; an unknown rate index and an out-of-range length fail
-    alike."""
+    """The port's one path (gather) and both strategies of JAX on the
+    same samples: payload (where the CRC holds), crc_ok, service and the
+    exactness flag are equal; an unknown rate index and an out-of-range
+    length fail alike."""
     rng = np.random.default_rng(17)
     lengths = np.array([1, MAX_LENGTH, 37, 23, 5, 44, 12, MAX_LENGTH + 3])
     rate_idx = np.array([0, 1, 2, 3, 2, 1, -1, 3])
     enc_len = np.minimum(lengths, MAX_LENGTH)
     re, im, payloads = _anyrate_data_samples(rng, enc_len,
                                              np.maximum(rate_idx, 0))
-    outs = {}
+    outs = {"torch": [_np(x) for x in ppdu.decode_data_anyrate_p(
+        (torch.from_numpy(re), torch.from_numpy(im)), RATES,
+        torch.from_numpy(rate_idx), torch.from_numpy(lengths), MAX_LENGTH)]}
     for strategy in ("select", "gather"):
-        outs["torch", strategy] = [_np(x) for x in ppdu.decode_data_anyrate_p(
-            (torch.from_numpy(re), torch.from_numpy(im)), RATES,
-            torch.from_numpy(rate_idx), torch.from_numpy(lengths),
-            MAX_LENGTH, strategy=strategy)]
         outs["jax", strategy] = [np.asarray(x) for x in
                                  j_ppdu.decode_data_anyrate_p(
             (jnp.asarray(re), jnp.asarray(im)), RATES,
@@ -574,45 +574,38 @@ def test_decode_data_anyrate_gather_equals_select_equals_jax():
         np.testing.assert_array_equal(out[2][ok], ref[2][ok],
                                       err_msg=str(key))
         np.testing.assert_array_equal(out[3], ref[3], err_msg=str(key))
-    # gather and select of the port agree everywhere, not only where the
-    # CRC holds: the coded streams differ only past a frame's own extent
-    for a, b in zip(outs["torch", "select"], outs["torch", "gather"]):
+    # the port and JAX's gather agree everywhere, not only where the CRC
+    # holds: the same coded streams into the same exact decode
+    for a, b in zip(outs["torch"], outs["jax", "gather"]):
         np.testing.assert_array_equal(a, b)
     for i in np.nonzero(ok)[0]:
         np.testing.assert_array_equal(ref[0][i, :lengths[i]], payloads[i])
 
 
-def test_decode_data_anyrate_rejects_unknown_strategy():
-    z = torch.zeros((1, 48 * params_for(RATES[0]).num_symbols(MAX_LENGTH)))
-    with pytest.raises(ValueError, match="strategy"):
-        ppdu.decode_data_anyrate_p((z, z), RATES, [0], [5], MAX_LENGTH,
-                                   strategy="table")
-
-
-def test_frame_and_capture_gather_equal_select():
-    """The strategy passed down from decode_frames_anyrate,
-    decode_frame_anyrate_p and receive_capture_anyrate_p: every output of
-    "gather" equals "select"'s on the dynamic plan's stream."""
+def test_frame_and_capture_gather_equal_select(monkeypatch):
+    """decode_frames_anyrate, decode_frame_anyrate_p and
+    receive_capture_anyrate_p against fun_ofdm_tpu's functions under its
+    "gather" strategy (FUN_OFDM_ANYRATE, read when JAX traces) on the
+    dynamic plan's stream; the *_matches_jax tests above hold them to
+    JAX's default, "select"."""
+    monkeypatch.setenv("FUN_OFDM_ANYRATE", "gather")
     plan, n = _dynamic_plan()
     re, im, _ = _stream(plan, n)
     planar = (torch.from_numpy(re), torch.from_numpy(im))
-    starts = torch.from_numpy(np.array([p for p, _, _ in plan]))
-    stream = torch.complex(*planar)
-    sel = rx.decode_frames_anyrate(stream, RATES, MAX_LENGTH, starts)
-    gat = rx.decode_frames_anyrate(stream, RATES, MAX_LENGTH, starts,
-                                   strategy="gather")
-    assert set(sel) == set(gat)
-    for key in sel:
-        np.testing.assert_array_equal(_np(gat[key]), _np(sel[key]),
-                                      err_msg=key)
+    j_planar = (jnp.asarray(re), jnp.asarray(im))
+    starts = np.array([p for p, _, _ in plan])
+    want = jax.jit(jax.vmap(lambda s: j_rx.decode_frame_anyrate_p(
+        j_planar, RATES, MAX_LENGTH, start=s)))(jnp.asarray(starts))
+    got = rx.decode_frames_anyrate(torch.complex(*planar), RATES,
+                                   MAX_LENGTH, torch.from_numpy(starts))
+    _compare_frames(got, want, _FRAME_KEYS)
     one = rx.decode_frame_anyrate_p(planar, RATES, MAX_LENGTH,
-                                    start=int(starts[2]), strategy="gather")
-    np.testing.assert_array_equal(_np(one["payload"]),
-                                  _np(sel["payload"])[2])
-    c_sel = frontend.receive_capture_anyrate_p(planar, RATES, MAX_LENGTH, 9)
-    c_gat = frontend.receive_capture_anyrate_p(planar, RATES, MAX_LENGTH, 9,
-                                               strategy="gather")
-    for key in c_sel:
-        np.testing.assert_array_equal(_np(c_gat[key]), _np(c_sel[key]),
-                                      err_msg=key)
-    assert int(_np(c_gat["crc_ok"]).sum()) == 5
+                                    start=int(starts[2]))
+    _compare_frames(one, {k: v[2] for k, v in want.items()}, _FRAME_KEYS)
+    c_got = frontend.receive_capture_anyrate_p(planar, RATES, MAX_LENGTH, 9)
+    c_want = jax.jit(lambda r, i: j_frontend.receive_capture_anyrate_p(
+        (r, i), RATES, MAX_LENGTH, 9))(*j_planar)
+    _compare_frames(c_got, c_want, ("starts", "valid", "crc_ok", "header_ok",
+                                    "rate_field", "hdr_length", "rate_match",
+                                    "detect_dropped"))
+    assert int(_np(c_got["crc_ok"]).sum()) == 5

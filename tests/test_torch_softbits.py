@@ -184,20 +184,25 @@ def test_kernel_algebra_equals_gather(max_length, slots):
     np.testing.assert_array_equal(got, want.numpy())
 
 
-def test_cpu_tensor_takes_the_plain_version():
-    """decode_data_anyrate_p on CPU tensors runs the strategy's plain
-    version under both names, and neither builds the library nor counts a
-    launch."""
+def test_cpu_tensor_takes_the_plain_version(monkeypatch):
+    """decode_data_anyrate_p on CPU tensors runs the plain version,
+    _anyrate_coded_gather, once over every slot, and neither builds the
+    library nor counts a launch."""
     softbits_cuda.reset_launches()
     rng = np.random.default_rng(5)
     nsym_max = max(params_for(r).num_symbols(40) for r in RATES)
     re_np, im_np = _points(rng, 4, nsym_max * 48, RATES)
     samples = (torch.from_numpy(re_np), torch.from_numpy(im_np))
-    outs = [ppdu.decode_data_anyrate_p(samples, RATES, [0, 3, 8, 10],
-                                       [40, 7, 1, 39], 40, strategy=s)
-            for s in ("select", "gather")]
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    calls = []
+    plain = ppdu._anyrate_coded_gather
+
+    def spy(*args):
+        calls.append(args[2].tolist())
+        return plain(*args)
+    monkeypatch.setattr(ppdu, "_anyrate_coded_gather", spy)
+    ppdu.decode_data_anyrate_p(samples, RATES, [0, 3, 8, 10],
+                               [40, 7, 1, 39], 40)
+    assert calls == [[0, 3, 8, 10]]
     assert softbits_cuda.launches == {"softbits": 0}
     assert softbits_cuda.build.cache_info().currsize == 0
 

@@ -1,14 +1,11 @@
 """The universal decode's soft streams on the card: the kernel of
 csrc/softbits.cu (ops/softbits_cuda.py, taken by
-models/ppdu.decode_data_anyrate_p for CUDA tensors under either strategy)
-against the plain versions, _anyrate_coded_gather and
-_anyrate_coded_select, on the same card and the same input.
+models/ppdu.decode_data_anyrate_p for CUDA tensors) against its plain
+version, _anyrate_coded_gather, on the same card and the same input.
 
-The kernel's whole output must equal gather's, bit for bit. Select's
-equals it up to each slot's own rate's end (2 * num_data_bits(max_length)
-of the rate): past it select keeps the soft values of the rate's pipeline
-run over the slowest rate's symbols, where gather and the kernel write the
-erasure; the Viterbi stops each frame before either. These need an NVIDIA
+The kernel's whole output must equal gather's, bit for bit, the erasure
+included past each slot's own rate's end (2 * num_data_bits(max_length)
+of the rate), where the Viterbi stops each frame. These need an NVIDIA
 GPU with the CUDA toolkit and skip elsewhere; they import no jax:
 
     python -m pytest --noconftest tests/test_torch_softbits_hopper.py -q
@@ -54,9 +51,9 @@ def _on_card(device, re_np, im_np, views):
 
 
 def _compare(device, re_np, im_np, ridx_np, max_length, views=False):
-    """Kernel vs both plain versions on one input; ridx_np may hold
-    indices out of range, which all three clamp as decode_data_anyrate_p
-    does. Returns the kernel's output."""
+    """Kernel vs its plain version on one input; ridx_np may hold indices
+    out of range, which both clamp as decode_data_anyrate_p does. Returns
+    the kernel's output."""
     samples = _on_card(device, re_np, im_np, views)
     ridx = torch.from_numpy(ridx_np).to(device)
     clamped = ridx.clamp(0, len(RATES) - 1)
@@ -69,12 +66,9 @@ def _compare(device, re_np, im_np, ridx_np, max_length, views=False):
     assert got.dtype == gather.dtype == torch.int32
     assert got.shape == gather.shape
     assert torch.equal(got, gather)
-    select = ppdu._anyrate_coded_select(samples, RATES, clamped,
-                                        got.shape[-1])
     n_coded = torch.tensor([2 * params_for(r).num_data_bits(max_length)
                             for r in RATES], device=device)[clamped]
     inside = torch.arange(got.shape[-1], device=device) < n_coded[:, None]
-    assert torch.equal(got[inside], select[inside])
     assert bool((got[~inside] == 127).all())
     return got
 
@@ -104,31 +98,27 @@ def test_the_capture_cells_shape(cuda_device):
 
 
 def test_decode_with_unknown_rates_equals_the_cpu(cuda_device):
-    """decode_data_anyrate_p on the card equals the CPU's under both
-    strategies, unknown rate indices (crc_ok False) and out-of-range
-    lengths included; one kernel launch a decode."""
+    """decode_data_anyrate_p on the card equals the CPU's, unknown rate
+    indices (crc_ok False) and out-of-range lengths included; one kernel
+    launch a decode."""
     rng = np.random.default_rng(7)
     nsym_max = max(params_for(r).num_symbols(60) for r in RATES)
     re_np, im_np = _points(rng, 6, nsym_max * 48, RATES)
     rate_idx, lengths = [0, 4, -1, 11, 10, 7], [60, 1, 30, 30, 61, 59]
     cpu = (torch.from_numpy(re_np), torch.from_numpy(im_np))
     card = tuple(t.to(cuda_device) for t in cpu)
-    for strategy in ("select", "gather"):
-        want = ppdu.decode_data_anyrate_p(cpu, RATES, rate_idx, lengths, 60,
-                                          strategy=strategy)
-        before = softbits_cuda.launches["softbits"]
-        got = ppdu.decode_data_anyrate_p(card, RATES, rate_idx, lengths, 60,
-                                         strategy=strategy)
-        assert softbits_cuda.launches["softbits"] == before + 1
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w), strategy
-        assert not bool(got[1][2:4].any())
+    want = ppdu.decode_data_anyrate_p(cpu, RATES, rate_idx, lengths, 60)
+    before = softbits_cuda.launches["softbits"]
+    got = ppdu.decode_data_anyrate_p(card, RATES, rate_idx, lengths, 60)
+    assert softbits_cuda.launches["softbits"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert not bool(got[1][2:4].any())
 
 
 def test_capture_with_a_longest_bpsk_frame_equals_the_cpu(cuda_device):
     """receive_capture_anyrate_p on a mixed-rate capture, one frame of each
-    rate and a 4,095-byte RATE_1_2_BPSK frame: under both strategies the
-    card's starts, valid and detect_dropped equal the CPU's, and in every
+    rate and a 4,095-byte RATE_1_2_BPSK frame: the card's starts, valid and detect_dropped equal the CPU's, and in every
     valid slot so do its header fields, crc_ok, rate_match and its
     payload's first hdr_length bytes; one launch a call. The rest is no
     part of an answer and may differ: an empty slot decodes the stream's
@@ -148,28 +138,24 @@ def test_capture_with_a_longest_bpsk_frame_equals_the_cpu(cuda_device):
     cpu = (torch.from_numpy(x.real.copy())[None],
            torch.from_numpy(x.imag.copy())[None])
     card = tuple(t.to(cuda_device) for t in cpu)
-    for strategy in ("select", "gather"):
-        want = frontend.receive_capture_anyrate_p(cpu, RATES, 4095, 14,
-                                                  strategy=strategy)
-        before = softbits_cuda.launches["softbits"]
-        got = frontend.receive_capture_anyrate_p(card, RATES, 4095, 14,
-                                                 strategy=strategy)
-        assert softbits_cuda.launches["softbits"] == before + 1
-        got = {k: v.cpu() for k, v in got.items()}
-        assert set(got) == set(want)
-        for k in ("starts", "valid", "detect_dropped"):
-            assert torch.equal(got[k], want[k]), (strategy, k)
-        valid = want["valid"][0]
-        assert int(valid.sum()) == len(plan)
-        for k in ("header_ok", "crc_ok", "rate_field", "hdr_length",
-                  "rate_match"):
-            assert torch.equal(got[k][0, valid], want[k][0, valid]), (
-                strategy, k)
-        assert bool(got["crc_ok"][0, valid].all())
-        for i in valid.nonzero().flatten().tolist():
-            n = int(want["hdr_length"][0, i])
-            assert torch.equal(got["payload"][0, i, :n],
-                               want["payload"][0, i, :n]), (strategy, i)
+    want = frontend.receive_capture_anyrate_p(cpu, RATES, 4095, 14)
+    before = softbits_cuda.launches["softbits"]
+    got = frontend.receive_capture_anyrate_p(card, RATES, 4095, 14)
+    assert softbits_cuda.launches["softbits"] == before + 1
+    got = {k: v.cpu() for k, v in got.items()}
+    assert set(got) == set(want)
+    for k in ("starts", "valid", "detect_dropped"):
+        assert torch.equal(got[k], want[k]), k
+    valid = want["valid"][0]
+    assert int(valid.sum()) == len(plan)
+    for k in ("header_ok", "crc_ok", "rate_field", "hdr_length",
+              "rate_match"):
+        assert torch.equal(got[k][0, valid], want[k][0, valid]), k
+    assert bool(got["crc_ok"][0, valid].all())
+    for i in valid.nonzero().flatten().tolist():
+        n = int(want["hdr_length"][0, i])
+        assert torch.equal(got["payload"][0, i, :n],
+                           want["payload"][0, i, :n]), i
 
 
 def test_soft_streams_make_no_blocking_copy(cuda_device):
@@ -202,7 +188,6 @@ def test_soft_streams_make_no_blocking_copy(cuda_device):
         trace.disable()
     _, counters = trace.take()
     assert counters["anyrate.kernel_slots"] == 8
-    assert counters["anyrate.rate_passes"] == 8
     events = prof.events()
     spans = [e.time_range for e in events if e.name == "ppdu.anyrate_coded"
              and e.device_type == torch.autograd.DeviceType.CPU]

@@ -7,8 +7,8 @@ packets (payload, rate, length, start, channel, in delivery order) after
 aside). Streams are small (payloads <= 120 bytes, <= 30k samples per
 channel); frames come from the JAX TX builder as float32. The port's
 own tests at the end cover what has no JAX twin: the merge-guard
-re-decode, the viterbi_impl knob, the required device and the adaptive
-ladder's rungs.
+re-decode, the viterbi_impl knob and its refusal of fun_ofdm_tpu's
+names, the required device and the adaptive ladder's rungs.
 """
 
 import dataclasses
@@ -273,9 +273,12 @@ def test_static_tables_match_jax():
             j.max_frames if j.params.header_slots is None
             else max(2, min(j.params.header_slots, j.max_frames)))
     assert chain.DECODE_BUCKETS == j_chain.DECODE_BUCKETS
-    assert chain._impl_for_bucket("auto", 64) == \
-        j_chain._impl_for_bucket("auto", 64) == "pallas-blocked"
-    assert chain._impl_for_bucket("auto", 256) is None
+    # the same rule under the port's names: JAX's "pallas-blocked" is the
+    # port's "blocked", JAX's None the port's "exact"
+    assert chain._impl_for_bucket("auto", 64) == "blocked"
+    assert j_chain._impl_for_bucket("auto", 64) == "pallas-blocked"
+    assert chain._impl_for_bucket("auto", 256) == "exact"
+    assert j_chain._impl_for_bucket("auto", 256) is None
 
 
 # ---------------------------------------------------------- the port ----
@@ -309,7 +312,7 @@ def test_merge_guard_fallback_redecodes_exactly(monkeypatch):
         (150, _frame(q, 60, 0)[1].tobytes())]
 
 
-@pytest.mark.parametrize("impl", ["scan", "exact", "pallas-blocked"])
+@pytest.mark.parametrize("impl", ["auto", "exact", "blocked"])
 def test_viterbi_impl_knob(impl):
     q = Rate.RATE_1_2_QPSK
     s = _stream([(90, q, 30)], 8192)
@@ -318,6 +321,15 @@ def test_viterbi_impl_knob(impl):
     assert c.viterbi_impl == impl
     assert [(p.start, p.payload) for p in _feed(c, [s])] == [
         (90, _frame(q, 30, 0)[1].tobytes())]
+
+
+@pytest.mark.parametrize("impl", ["scan", "pallas", "pallas-blocked"])
+def test_chain_refuses_the_tpu_viterbi_names(impl):
+    """fun_ofdm_tpu's names for its Viterbi backends are refused when the
+    chain is built, not at its first decode."""
+    with pytest.raises(ValueError, match="viterbi_impl"):
+        chain.ReceiverChain(rates=(Rate.RATE_1_2_QPSK,), max_length=30,
+                            viterbi_impl=impl, device="cpu")
 
 
 def test_device_is_required_and_unported_parts_raise():

@@ -352,12 +352,11 @@ def test_count_is_a_noop_when_off(tracer):
     assert tracer.take() == ([], {"dropped": 0})     # cleared
 
 
-@pytest.mark.parametrize("strategy,passes", [("select", 11), ("gather", 1)])
-def test_anyrate_capture_tree_and_counters(tracer, strategy, passes):
+def test_anyrate_capture_tree_and_counters(tracer):
     """receive_capture_anyrate_p opens receive_capture's spans, the
-    universal decode its two stages inside rx.decode, and counts its slots,
-    their symbols at the slowest rate's geometry and its soft-stream
-    pipelines; traced and untraced give the same outputs."""
+    universal decode its two stages inside rx.decode, and counts its slots
+    and their symbols at the slowest rate's geometry; traced and untraced
+    give the same outputs."""
     from fun_ofdm_tpu_torch.rates import ALL_RATES, params_for
 
     (re, im), _ = _frames()
@@ -366,7 +365,7 @@ def test_anyrate_capture_tree_and_counters(tracer, strategy, passes):
 
     def call():
         return frontend.receive_capture_anyrate_p(
-            stream, ALL_RATES, LENGTH, slots, strategy=strategy)
+            stream, ALL_RATES, LENGTH, slots)
     want = call()
     tracer.enable()
     got = [call() for _ in range(2)]
@@ -390,16 +389,13 @@ def test_anyrate_capture_tree_and_counters(tracer, strategy, passes):
         assert all(k.id == spans[i].id for k in _children(spans, dec))
     nsym_max = params_for(Rate.RATE_1_2_BPSK).num_symbols(LENGTH)
     assert counters == {"dropped": 0, "anyrate.slots": 2 * slots,
-                        "anyrate.symbols": 2 * slots * nsym_max,
-                        "anyrate.rate_passes": 2 * slots * passes}
+                        "anyrate.symbols": 2 * slots * nsym_max}
 
 
-@pytest.mark.parametrize("strategy,passes", [("select", 11), ("gather", 1)])
-def test_anyrate_kernel_slots_not_counted_on_the_cpu(tracer, strategy,
-                                                     passes):
+def test_anyrate_kernel_slots_not_counted_on_the_cpu(tracer):
     """On the CPU the universal decode's soft streams come from the plain
-    strategies: anyrate.kernel_slots is never counted, and
-    anyrate.rate_passes counts each strategy's own pipelines."""
+    version: anyrate.kernel_slots is never counted, and the payload
+    decode counts nothing else (rx counts the slots)."""
     from fun_ofdm_tpu_torch.models import ppdu
     from fun_ofdm_tpu_torch.rates import ALL_RATES, params_for
 
@@ -407,7 +403,6 @@ def test_anyrate_kernel_slots_not_counted_on_the_cpu(tracer, strategy,
     z = torch.zeros(3, nsym_max * 48)
     tracer.enable()
     ppdu.decode_data_anyrate_p((z, z), ALL_RATES, [0, 5, 10], [LENGTH] * 3,
-                               LENGTH, strategy=strategy)
+                               LENGTH)
     _, counters = tracer.take()
-    assert counters.get("anyrate.kernel_slots", 0) == 0
-    assert counters["anyrate.rate_passes"] == 3 * passes
+    assert counters == {"dropped": 0}
