@@ -185,40 +185,55 @@ def detect_frames_p(stream, max_frames: int,
                          return_dropped, drop_count_limit)
 
 
+def _receive(samples, decode: rx_model.Decode, max_frames: int,
+             params: ChainParams, keys: tuple[str, ...],
+             frame_len: int | None = None) -> dict:
+    """Detect, then decode every slot (rx_model.capture_call: on the card
+    a replay of the decode's CUDA graph once its key repeats). samples:
+    (..., n) complex or planar (re, im). With frame_len, only frames that
+    fit in the stream count as valid and are decoded. Returns starts,
+    valid, crc_ok and header_ok (both False where not valid) and `keys` of
+    the decode's outputs and of detect_dropped."""
+    with trace.span("frontend.receive_capture"):
+        with rx_model.capture_call(samples, decode, max_frames) as (stream,
+                                                                     run):
+            with trace.span("frontend.detect"):
+                starts, valid, dropped = detect_frames(stream, max_frames,
+                                                       params,
+                                                       return_dropped=True)
+            if frame_len is not None:
+                valid = valid & (starts + frame_len <= stream.shape[-1])
+            with trace.span("rx.decode"):
+                out = run(valid, starts)
+        out["detect_dropped"] = dropped
+        return {"starts": starts, "valid": valid,
+                "crc_ok": out["crc_ok"] & valid,
+                "header_ok": out["header_ok"] & valid,
+                **{k: out[k] for k in keys}}
+
+
 def receive_capture(stream: torch.Tensor, rate: Rate, length: int,
                     max_frames: int,
                     params: ChainParams = DEFAULT_PARAMS) -> dict:
     """Detect and decode every frame of a known (rate, length) config.
 
-    stream: (..., n) complex captures, e.g. (channels, n). Every slot of
-    every stream is decoded in one batch (one header and one payload
-    Viterbi launch). Returns per-slot tensors (..., max_frames): starts,
+    stream: (..., n) complex captures, e.g. (channels, n), or their
+    planar (re, im) pair. Every slot of every stream is decoded in one
+    batch (one header and one payload Viterbi launch). Returns per-slot tensors (..., max_frames): starts,
     valid, payload (..., max_frames, length), crc_ok, header_ok;
-    `valid & crc_ok` marks delivered packets.
+    `valid & crc_ok` marks delivered packets. Only frames that fit in the
+    stream are valid.
     """
-    with trace.span("frontend.receive_capture"):
-        n = stream.shape[-1]
-        frame_len = params_for(rate).frame_samples(length)
-        with trace.span("frontend.detect"):
-            starts, valid = detect_frames(stream, max_frames, params)
-        ok = valid & (starts + frame_len <= n)  # decode only frames that fit
-        with trace.span("rx.decode"):
-            out = rx_model.decode_frames(stream, rate, length,
-                                         torch.where(ok, starts, 0))
-        return {
-            "starts": starts,
-            "valid": ok,
-            "payload": out["payload"],
-            "crc_ok": out["crc_ok"] & ok,
-            "header_ok": out["header_ok"] & ok,
-        }
+    return _receive(stream, rx_model.Decode("frames", (rate,), length),
+                    max_frames, params, ("payload",),
+                    params_for(rate).frame_samples(length))
 
 
 def receive_capture_p(stream, rate: Rate, length: int, max_frames: int,
                       params: ChainParams = DEFAULT_PARAMS) -> dict:
-    """Planar form of receive_capture: stream (re, im) of (..., n)."""
-    return receive_capture(torch.complex(*stream), rate, length, max_frames,
-                           params)
+    """Planar form of receive_capture: stream (re, im) of (..., n), on
+    the card written straight into the decode's stream buffer."""
+    return receive_capture(stream, rate, length, max_frames, params)
 
 
 #: samples a SIGNAL header needs from the preamble start (preamble + SIGNAL)
@@ -279,27 +294,6 @@ def decode_headers_p(stream, max_frames: int,
                           drop_count_limit, hdr_slots, cfo_correct)
 
 
-def _receive_dynamic(stream: torch.Tensor, frame_len_max: int,
-                     max_frames: int, params: ChainParams, decode,
-                     keys: tuple[str, ...]) -> dict:
-    """Detect, then decode every slot with `decode(padded, starts)` over
-    the stream zero-padded by one longest frame (a frame cut by the
-    capture's end reads zeros and fails its CRC); the decode's `keys`
-    pass through. The spans are receive_capture's."""
-    with trace.span("frontend.receive_capture"):
-        with trace.span("frontend.detect"):
-            starts, valid, dropped = detect_frames(stream, max_frames,
-                                                   params,
-                                                   return_dropped=True)
-        with trace.span("rx.decode"):
-            padded = torch.nn.functional.pad(stream, (0, frame_len_max))
-            out = decode(padded, torch.where(valid, starts, 0))
-        return {"starts": starts, "valid": valid,
-                "crc_ok": out["crc_ok"] & valid,
-                "header_ok": out["header_ok"] & valid,
-                "detect_dropped": dropped, **{k: out[k] for k in keys}}
-
-
 def receive_capture_dynamic_p(stream, rate: Rate, max_length: int,
                               max_frames: int,
                               params: ChainParams = DEFAULT_PARAMS) -> dict:
@@ -307,12 +301,13 @@ def receive_capture_dynamic_p(stream, rate: Rate, max_length: int,
     (..., n) planar streams: the rate is configuration, each frame's
     length comes from its SIGNAL header. Returns per-slot starts, valid,
     payload (..., max_frames, max_length), hdr_length, rate_field,
-    crc_ok, header_ok, and (...,) detect_dropped."""
-    return _receive_dynamic(
-        torch.complex(*stream), params_for(rate).frame_samples(max_length),
-        max_frames, params,
-        lambda s, st: rx_model.decode_frames_dynamic(s, rate, max_length, st),
-        ("payload", "hdr_length", "rate_field"))
+    crc_ok, header_ok, and (...,) detect_dropped. The stream is decoded
+    followed by one longest frame of zeros (a frame cut by the capture's
+    end reads zeros and fails its CRC)."""
+    return _receive(stream, rx_model.Decode("dynamic", (rate,), max_length),
+                    max_frames, params,
+                    ("detect_dropped", "payload", "hdr_length",
+                     "rate_field"))
 
 
 def receive_capture_anyrate_p(stream, rates: tuple[Rate, ...],
@@ -322,10 +317,8 @@ def receive_capture_anyrate_p(stream, rates: tuple[Rate, ...],
     (..., n) planar streams: each frame's rate and length come from its
     SIGNAL header. Same outputs as receive_capture_dynamic_p, plus
     rate_match."""
-    rates = tuple(rates)
-    return _receive_dynamic(
-        torch.complex(*stream),
-        max(params_for(r).frame_samples(max_length) for r in rates),
-        max_frames, params,
-        lambda s, st: rx_model.decode_frames_anyrate(s, rates, max_length, st),
-        ("payload", "hdr_length", "rate_field", "rate_match"))
+    return _receive(stream,
+                    rx_model.Decode("anyrate", tuple(rates), max_length),
+                    max_frames, params,
+                    ("detect_dropped", "payload", "hdr_length",
+                     "rate_field", "rate_match"))

@@ -22,7 +22,7 @@ import torch
 from ..ops import (convcode, crc32, interleave, puncture, qam, scramble,
                    softbits_cuda, viterbi)
 from ..rates import VALID_RATE_FIELDS, Rate, params_for
-from ..utils import trace
+from ..utils import tables, trace
 from ..utils.bits import bits_to_bytes, bytes_to_bits
 
 HEADER_BITS = 18  # rate(4) + reserved(1) + length(12) + parity(1)
@@ -196,6 +196,11 @@ def encode_dynamic_p(payload: torch.Tensor, lengths, rate: Rate,
             torch.cat([hdr_im, data_im], dim=-1))
 
 
+@tables.on_device()
+def _valid_rate_fields_on(device: torch.device) -> torch.Tensor:
+    return torch.tensor(VALID_RATE_FIELDS, device=device)
+
+
 def decode_header(samples: torch.Tensor):
     """(..., 48) SIGNAL samples -> (rate_field, length, ok), where ok
     covers parity and a valid rate (reference: src/ppdu.cpp:168-218)."""
@@ -210,8 +215,10 @@ def decode_header(samples: torch.Tensor):
     parity_ok = (par & 1) == 0
     rate_field = (field >> 19) & 0xF
     length = (field >> 6) & 0xFFF
-    valid = torch.isin(rate_field, torch.tensor(VALID_RATE_FIELDS,
-                                                device=field.device))
+    # one comparison a valid field: torch.isin makes a call that a CUDA
+    # graph capture refuses at some sizes (models/rx.capture_call)
+    valid = (rate_field[..., None]
+             == _valid_rate_fields_on(field.device)).any(-1)
     return rate_field, length, parity_ok & valid
 
 
@@ -364,12 +371,18 @@ def _anyrate_tables(rates: tuple[Rate, ...], max_length: int):
             nbits_max, n_bytes_max)
 
 
-@functools.lru_cache(maxsize=None)
+@tables.on_device()
 def _anyrate_tables_on(rates: tuple[Rate, ...], max_length: int,
                        device: torch.device) -> torch.Tensor:
     """_anyrate_tables' tabs as an int64 tensor on `device`."""
     return torch.from_numpy(_anyrate_tables(rates, max_length)[0]).to(
         device, torch.int64)
+
+
+@tables.on_device()
+def _dbps_on(rates: tuple[Rate, ...], device: torch.device) -> torch.Tensor:
+    """(n_rates,) int64 data bits a symbol of each rate, on device."""
+    return torch.tensor([params_for(r).dbps for r in rates], device=device)
 
 
 def _anyrate_coded_gather(samples, rates, ridx, max_length: int):
@@ -399,8 +412,17 @@ def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
     (ops/softbits_cuda.softbits); CPU tensors take its plain version,
     _anyrate_coded_gather. The FUN_OFDM_ANYRATE variable is not read.
     Returns (payload (..., max_length), crc_ok, service, viterbi_exact).
+    On the card it counts anyrate.kernel_slots (utils/trace.py).
     """
-    rates = tuple(rates)
+    if samples[0].is_cuda:
+        trace.count("anyrate.kernel_slots", samples[0].shape[:-1].numel())
+    return decode_data_anyrate(samples, tuple(rates), rate_idx, lengths,
+                               max_length, viterbi_impl)
+
+
+def decode_data_anyrate(samples, rates: tuple[Rate, ...], rate_idx, lengths,
+                        max_length: int, viterbi_impl: str | None):
+    """decode_data_anyrate_p without its counter."""
     nbits_max = max(params_for(r).num_data_bits(max_length) for r in rates)
     n_bytes_max = max(params_for(r).num_data_bytes(max_length)
                       for r in rates)
@@ -411,13 +433,11 @@ def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
     lengths = torch.as_tensor(lengths, device=dev).to(torch.int64)
     in_range = (lengths >= 1) & (lengths <= max_length) & known
     lengths_c = lengths.clamp(1, max_length)
-    dbps = torch.tensor([params_for(r).dbps for r in rates], device=dev)
-    nbits = _frame_nbits(lengths_c, dbps[ridx])
+    nbits = _frame_nbits(lengths_c, _dbps_on(rates, dev)[ridx])
 
     with trace.span("ppdu.anyrate_coded"):
         if samples[0].is_cuda:
             lead = samples[0].shape[:-1]
-            trace.count("anyrate.kernel_slots", lead.numel())
             coded = softbits_cuda.softbits(samples, rates, ridx.expand(lead),
                                            max_length)
         else:

@@ -15,9 +15,18 @@ loop is dead code (src/timing_sync.cpp:109-112); this is fun_ofdm_tpu's
 correction. The JAX module works on planar pairs, the port in complex64;
 the derotation angle w * idx is formed in float32 before cos/sin, as
 there.
+
+On the card a capture call's decode is replayed from a CUDA graph once
+its shapes repeat (capture_call, at the end); the constant tables every
+decode reads are device tensors made once per device (utils/tables.py).
 """
 
 from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,7 +34,7 @@ import torch
 from .. import preamble as pre
 from ..ops import fft64, mapper
 from ..rates import Rate, params_for
-from ..utils import trace
+from ..utils import tables, trace
 from . import ppdu
 
 
@@ -157,10 +166,18 @@ def derotation_indices(nsym_total: int):
     return lts_idx, sym_idx
 
 
+@tables.on_device(maxsize=64)
+def _derotation_indices_on(nsym_total: int, device: torch.device):
+    """derotation_indices(nsym_total) as float32 tensors on device."""
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in derotation_indices(nsym_total))
+
+
 def _derotate(x: torch.Tensor, w: torch.Tensor, idx) -> torch.Tensor:
     """x (..., R, 64) complex times e^{-j * w * idx}, w (...,), idx
-    (R, 64); the angle is formed in float32."""
-    idx = torch.from_numpy(np.asarray(idx, np.float32)).to(w.device)
+    (R, 64) (numpy or a float32 tensor on w's device); the angle is formed
+    in float32."""
+    idx = torch.as_tensor(idx, dtype=torch.float32, device=w.device)
     ang = w[..., None, None] * idx
     return x * torch.complex(torch.cos(ang), -torch.sin(ang))
 
@@ -180,9 +197,17 @@ def sync_frames(stream: torch.Tensor, starts: torch.Tensor,
     lts, syms = extract_frames(stream, starts, num_symbols)
     if cfo_correct:
         w = estimate_cfo_cascade(stream, starts, lts)
-        lts_idx, sym_idx = derotation_indices(1 + num_symbols)
+        lts_idx, sym_idx = _derotation_indices_on(1 + num_symbols,
+                                                  stream.device)
         lts, syms = _derotate(lts, w, lts_idx), _derotate(syms, w, sym_idx)
     return lts, syms
+
+
+@tables.on_device()
+def _lts_reference_on(dtype: torch.dtype, device: torch.device):
+    """(the LTS's 64 bins in `dtype`, their active mask) on device."""
+    return (torch.from_numpy(pre.LTS_FREQ_DOMAIN).to(device, dtype),
+            torch.from_numpy(pre.LTS_FREQ_DOMAIN != 0).to(device))
 
 
 def channel_estimate(lts_time: torch.Tensor) -> torch.Tensor:
@@ -193,11 +218,10 @@ def channel_estimate(lts_time: torch.Tensor) -> torch.Tensor:
     (reference: src/channel_est.cpp:44-58). Returns (..., 64).
     """
     lts_f = fft64.forward(lts_time)
-    ref = torch.from_numpy(pre.LTS_FREQ_DOMAIN).to(lts_f.device, lts_f.dtype)
+    ref, active = _lts_reference_on(lts_f.dtype, lts_f.device)
     d = lts_f.real * lts_f.real + lts_f.imag * lts_f.imag
     num = ref * lts_f.conj()
     inv = torch.where(d > 0, num / torch.where(d > 0, d, 1.0), 0.0)
-    active = torch.from_numpy(pre.LTS_FREQ_DOMAIN != 0).to(lts_f.device)
     return inv.mean(dim=-2) * active
 
 
@@ -216,12 +240,9 @@ def equalize_and_track(sym_time: torch.Tensor,
     (reference: src/channel_est.cpp:77-81, src/phase_tracker.cpp:70-105).
     """
     eq = fft64.forward(sym_time) * h_inv[..., None, :]
-    nsym = sym_time.shape[-2]
-    dev = eq.device
-    pilot_ref = torch.from_numpy(
-        mapper.polarity_for_symbols(nsym, 0)[:, None] * mapper.PILOT_VALUES
-    ).to(dev, eq.real.dtype)                                   # (S, 4)
-    pilots = eq[..., torch.from_numpy(mapper.PILOT_IDX).long().to(dev)]
+    pilot_ref = mapper.pilot_reference_on(sym_time.shape[-2], eq.real.dtype,
+                                          eq.device)           # (S, 4)
+    pilots = eq[..., mapper.pilot_index_on(eq.device)]
     # the pilot references are real: rx * conj(ref) = rx * ref
     angle = torch.angle((pilots * pilot_ref).mean(dim=-1))
     rot = torch.polar(torch.ones_like(angle), -angle)
@@ -323,10 +344,26 @@ def decode_frames_anyrate(stream: torch.Tensor, rates: tuple[Rate, ...],
     Same outputs as decode_frames_dynamic; rate_match is True where the
     header's rate is one of `rates`."""
     rates = tuple(rates)
+    count_anyrate(rates, max_length, starts.numel(), stream.is_cuda)
+    return _decode_frames_anyrate(stream, rates, max_length, starts,
+                                  viterbi_impl, cfo_correct)
+
+
+def count_anyrate(rates: tuple[Rate, ...], max_length: int, slots: int,
+                  on_card: bool) -> None:
+    """Count a universal decode's host-known counters (utils/trace.py):
+    anyrate.slots, anyrate.symbols and, on the card, anyrate.kernel_slots."""
     nsym_max = max(params_for(r).num_symbols(max_length) for r in rates)
-    slots = starts.numel()
     trace.count("anyrate.slots", slots)
     trace.count("anyrate.symbols", slots * nsym_max)
+    if on_card:
+        trace.count("anyrate.kernel_slots", slots)
+
+
+def _decode_frames_anyrate(stream, rates, max_length, starts, viterbi_impl,
+                           cfo_correct) -> dict:
+    """decode_frames_anyrate without its counters."""
+    nsym_max = max(params_for(r).num_symbols(max_length) for r in rates)
     with trace.span("rx.anyrate_sync"):
         rest, rate_field, hdr_length, header_ok = _header_and_rest(
             stream, starts, nsym_max, cfo_correct)
@@ -335,9 +372,9 @@ def decode_frames_anyrate(stream: torch.Tensor, rates: tuple[Rate, ...],
         rate_idx = torch.where(rate_field == params_for(r).rate_field, i,
                                rate_idx)
     rate_match = rate_idx >= 0
-    payload, crc_ok, service, exact = ppdu.decode_data_anyrate_p(
+    payload, crc_ok, service, exact = ppdu.decode_data_anyrate(
         (rest.real, rest.imag), rates, rate_idx, hdr_length, max_length,
-        viterbi_impl=viterbi_impl)
+        viterbi_impl)
     return {
         "payload": payload,
         "crc_ok": crc_ok & header_ok & rate_match,
@@ -377,3 +414,187 @@ def decode_frame_anyrate_p(samples, rates: tuple[Rate, ...],
     decode_frame_dynamic_p)."""
     return _one_frame(lambda s, st: decode_frames_anyrate(
         s, rates, max_length, st, viterbi_impl, cfo_correct), samples, start)
+
+
+# --- a capture call's decode, replayed on the card ---------------------------
+
+
+class Decode(NamedTuple):
+    """A capture decode's configuration: beside the stream's shape and the
+    slot count, everything that fixes its shapes and its code path.
+
+    kind "frames": decode_frames at rates[0] and `length` bytes; "dynamic":
+    decode_frames_dynamic at rates[0], lengths from the headers up to
+    `length`; "anyrate": decode_frames_anyrate over `rates` up to `length`.
+    Calling it decodes without counting; count() counts.
+    """
+
+    kind: str
+    rates: tuple
+    length: int
+    viterbi_impl: str | None = None
+    cfo_correct: bool = False
+
+    def pad(self) -> int:
+        """Zeros decoded after the stream: none for "frames", else one
+        longest frame, so that a frame cut by the capture's end reads zeros
+        and fails its CRC."""
+        if self.kind == "frames":
+            return 0
+        return max(params_for(r).frame_samples(self.length)
+                   for r in self.rates)
+
+    def __call__(self, stream: torch.Tensor, starts: torch.Tensor) -> dict:
+        if self.kind == "frames":
+            return decode_frames(stream, self.rates[0], self.length, starts,
+                                 self.cfo_correct)
+        if self.kind == "dynamic":
+            return decode_frames_dynamic(stream, self.rates[0], self.length,
+                                         starts, self.viterbi_impl,
+                                         self.cfo_correct)
+        return _decode_frames_anyrate(stream, self.rates, self.length,
+                                      starts, self.viterbi_impl,
+                                      self.cfo_correct)
+
+    def count(self, slots: int, on_card: bool) -> None:
+        """Count the host-known counters of one call over `slots` slots
+        (the universal decode's anyrate.*), eager or replayed alike."""
+        if self.kind == "anyrate":
+            count_anyrate(self.rates, self.length, slots, on_card)
+
+
+#: fixed-shape capture decodes kept on the card; past this many the least
+#: recently used is dropped, its graph and buffers with it
+GRAPHS_KEPT = 4
+_graphs: collections.OrderedDict = collections.OrderedDict()
+_graphs_lock = threading.Lock()
+
+
+def graph_key(decode: Decode, shape, dtype, device, stream: int,
+              max_frames: int) -> tuple:
+    """The key of a capture call's graph: the decode's configuration, the
+    stream's shape and dtype, its device and CUDA stream (the handle),
+    and the slots a stream."""
+    return (decode, tuple(shape), dtype, torch.device(device), stream,
+            max_frames)
+
+
+class _Replayed:
+    """One fixed-shape decode on the card: its static inputs, the stream
+    (its zero tail included) and the slot starts, and from the end of its
+    key's first call the CUDA graph of decode(stream, starts), the graph's
+    outputs and the tables it reads."""
+
+    def __init__(self, decode: Decode, shape, max_frames: int, device):
+        self.decode = decode
+        lead, n = tuple(shape[:-1]), shape[-1]
+        self.stream = torch.zeros(lead + (n + decode.pad(),),
+                                  dtype=torch.complex64, device=device)
+        self.samples = self.stream[..., :n]
+        self.starts = torch.zeros(lead + (max_frames,), dtype=torch.int64,
+                                  device=device)
+        self.lock = threading.Lock()
+        self.graph = None
+        self.out: dict = {}        # the graph's outputs, rewritten each replay
+        self.tables: list = []     # the tables the graph reads
+
+    def run(self, valid: torch.Tensor, starts: torch.Tensor) -> dict:
+        self.decode.count(self.starts.numel(), True)
+        self.starts.copy_(torch.where(valid, starts, 0))
+        if self.graph is not None:
+            self.graph.replay()
+            trace.count("rx.graph_replays", 1)
+            # fresh tensors: the next replay rewrites the graph's own
+            return {k: v.clone() for k, v in self.out.items()}
+        out = self.decode(self.stream, self.starts)
+        trace.count("rx.decode_eager", 1)
+        self._capture()
+        trace.count("rx.graph_captures", 1)
+        return out
+
+    def _capture(self) -> None:
+        """Capture the decode into a CUDA graph. The eager decode before
+        it made cuFFT's plans and every table the decode reads. The capture
+        runs on a stream of its own on the buffers' device, with that
+        device current: torch.cuda.graph's default stream lies on whichever
+        device was current at the process's first capture, and a capture
+        there would record none of this device's work."""
+        device = self.stream.device
+        side = torch.cuda.Stream(device)
+        assert side.device == device, (side.device, device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), tables.held() as kept, \
+                torch.cuda.graph(graph, stream=side,
+                                 capture_error_mode="thread_local"):
+            out = self.decode(self.stream, self.starts)
+        self.graph, self.out, self.tables = graph, out, kept
+
+
+def _replayed(key: tuple, decode: Decode, shape, max_frames: int,
+              device) -> _Replayed:
+    with _graphs_lock:
+        entry = _graphs.pop(key, None)
+        if entry is None:
+            entry = _Replayed(decode, shape, max_frames, device)
+        _graphs[key] = entry
+        if len(_graphs) > GRAPHS_KEPT:
+            _graphs.popitem(last=False)
+    return entry
+
+
+def _replayable(samples, planar: bool) -> bool:
+    if planar:
+        re, im = samples
+        return (re.is_cuda and re.dtype == im.dtype == torch.float32
+                and re.shape == im.shape)
+    return samples.is_cuda and samples.dtype == torch.complex64
+
+
+@contextlib.contextmanager
+def capture_call(samples, decode: Decode, max_frames: int):
+    """One capture call's stream and the decode of its slots.
+
+    samples: (..., n) complex captures, or planar (re, im) of them. Yields
+    (stream, run): the (..., n) complex stream, contiguous, to detect the
+    frames in, and run(valid, starts) for (..., max_frames) slots, which
+    returns decode(the stream followed by decode.pad() zeros,
+    where(valid, starts, 0)) and counts decode.count() once.
+
+    A CPU stream decodes eagerly. On the card (complex64, or planar
+    float32 of one shape) the call's graph_key picks a _Replayed, whose
+    stream buffer the samples are written into: the key's first call
+    decodes eagerly (cuFFT's plans and the tables' caches warm up) and
+    then captures the decode into a CUDA graph, and every later call
+    replays the graph: the same kernels in the same order on the same
+    data, in one launch. Detection runs eagerly on the same buffer
+    before. A call on the card counts rx.decode_eager or rx.graph_replays,
+    and a capture rx.graph_captures (utils/trace.py); another dtype on
+    the card decodes eagerly. At most GRAPHS_KEPT keys are kept.
+    """
+    planar = not isinstance(samples, torch.Tensor)
+    first = samples[0] if planar else samples
+    if not _replayable(samples, planar):
+        stream = torch.complex(*samples) if planar else samples
+        pad = decode.pad()
+
+        def run(valid, starts):
+            decode.count(starts.numel(), stream.is_cuda)
+            if stream.is_cuda:
+                trace.count("rx.decode_eager", 1)
+            padded = (torch.nn.functional.pad(stream, (0, pad)) if pad
+                      else stream)
+            return decode(padded, torch.where(valid, starts, 0))
+        yield stream, run
+        return
+    key = graph_key(decode, first.shape, torch.complex64, first.device,
+                    torch.cuda.current_stream(first.device).cuda_stream,
+                    max_frames)
+    entry = _replayed(key, decode, first.shape, max_frames, first.device)
+    with entry.lock:
+        if planar:
+            torch.complex(*samples, out=entry.samples)
+        else:
+            entry.samples.copy_(samples)
+        stream = entry.samples
+        yield (stream if stream.is_contiguous() else stream.contiguous(),
+               entry.run)

@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tables
+
 _POLY = 0xEDB88320  # reflected 0x04C11DB7
 _MASK = 0xFFFFFFFF
 
@@ -51,7 +53,7 @@ def _position_tables(n: int) -> tuple[np.ndarray, int]:
     return tab.astype(np.int64), int(init[0])
 
 
-@functools.lru_cache(maxsize=8)
+@tables.on_device(maxsize=8)
 def _device_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_position_tables(n)[0]).to(device)
 
@@ -82,6 +84,11 @@ def _init_contrib_table(n_max: int) -> np.ndarray:
     return out.astype(np.int64)
 
 
+@tables.on_device(maxsize=8)
+def _init_contrib_on(n_max: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_init_contrib_table(n_max)).to(device)
+
+
 def crc32_dynamic(data: torch.Tensor, n_valid) -> torch.Tensor:
     """CRC-32 of the first n_valid bytes of each row.
 
@@ -105,5 +112,5 @@ def crc32_dynamic(data: torch.Tensor, n_valid) -> torch.Tensor:
     while width > 1:
         width //= 2
         vals = vals[..., :width] ^ vals[..., width:]
-    init = torch.from_numpy(_init_contrib_table(n_max)).to(dev)[n_valid]
+    init = _init_contrib_on(n_max, dev)[n_valid]
     return vals[..., 0] ^ init ^ _MASK

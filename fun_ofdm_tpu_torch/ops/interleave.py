@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tables
+
 CHUNK = 48
 
 #: PERM[k] = output position of input bit k within a 48-bit chunk
@@ -20,17 +22,23 @@ PERM: np.ndarray = (3 * (np.arange(CHUNK) % 16)
 INV_PERM: np.ndarray = np.argsort(PERM).astype(np.int32)
 
 
-def _permute(x: torch.Tensor, index: np.ndarray) -> torch.Tensor:
+@tables.on_device()
+def index_on(inverse: bool, device: torch.device) -> torch.Tensor:
+    """INV_PERM (inverse=True) or PERM as an int64 tensor on device."""
+    return torch.from_numpy(INV_PERM if inverse else PERM).to(device,
+                                                             torch.int64)
+
+
+def _permute(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     chunks = x.reshape(*x.shape[:-1], -1, CHUNK)
-    idx = torch.from_numpy(index).to(x.device, torch.int64)
-    return chunks[..., idx].reshape(x.shape)
+    return chunks[..., index_on(inverse, x.device)].reshape(x.shape)
 
 
 def interleave(bits: torch.Tensor) -> torch.Tensor:
     """(..., n) -> (..., n), n a multiple of 48: out[perm[k]] = in[k]."""
-    return _permute(bits, INV_PERM)
+    return _permute(bits, True)
 
 
 def deinterleave(bits: torch.Tensor) -> torch.Tensor:
     """Inverse of interleave: out[k] = in[perm[k]]."""
-    return _permute(bits, PERM)
+    return _permute(bits, False)

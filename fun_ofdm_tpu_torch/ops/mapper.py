@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tables
+
 #: 0 = null, 1 = data, 2 = pilot, per centred subcarrier
 ACTIVE_MAP: np.ndarray = np.zeros(64, np.int32)
 ACTIVE_MAP[6:59] = 1
@@ -44,16 +46,37 @@ def polarity_for_symbols(num_symbols: int, start: int = 0) -> np.ndarray:
     return POLARITY[(np.arange(num_symbols) + start) % 127]
 
 
+@tables.on_device()
+def data_index_on(device: torch.device) -> torch.Tensor:
+    """DATA_IDX as an int64 tensor on device."""
+    return torch.from_numpy(DATA_IDX).to(device, torch.int64)
+
+
+@tables.on_device()
+def pilot_index_on(device: torch.device) -> torch.Tensor:
+    """PILOT_IDX as an int64 tensor on device."""
+    return torch.from_numpy(PILOT_IDX).to(device, torch.int64)
+
+
+@tables.on_device(maxsize=64)
+def pilot_reference_on(num_symbols: int, dtype: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """(num_symbols, 4) pilot values of symbols 0.. of a frame, each
+    PILOT_VALUES times its polarity, on device."""
+    ref = polarity_for_symbols(num_symbols, 0)[:, None] * PILOT_VALUES
+    return torch.from_numpy(ref).to(device, dtype)
+
+
 def map_symbols(data: torch.Tensor, start_symbol: int = 0) -> torch.Tensor:
     """(..., nsym, 48) complex data -> (..., nsym, 64) symbols with the
     pilots (real, +-1 times the symbol's polarity) and zero nulls."""
     nsym = data.shape[-2]
     dev = data.device
     out = torch.zeros(data.shape[:-1] + (64,), dtype=data.dtype, device=dev)
-    out[..., torch.from_numpy(DATA_IDX).long().to(dev)] = data
+    out[..., data_index_on(dev)] = data
     pilots = polarity_for_symbols(nsym, start_symbol)[:, None] * PILOT_VALUES
-    out[..., torch.from_numpy(PILOT_IDX).long().to(dev)] = torch.from_numpy(
-        pilots).to(dev, data.dtype)
+    out[..., pilot_index_on(dev)] = torch.from_numpy(pilots).to(dev,
+                                                                data.dtype)
     return out
 
 
@@ -65,4 +88,4 @@ def map_symbols_p(data, start_symbol: int = 0):
 
 def demap_symbols(symbols: torch.Tensor) -> torch.Tensor:
     """(..., 64) symbols -> (..., 48) data bins, ascending index."""
-    return symbols[..., torch.from_numpy(DATA_IDX).long().to(symbols.device)]
+    return symbols[..., data_index_on(symbols.device)]

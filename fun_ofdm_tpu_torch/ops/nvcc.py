@@ -5,6 +5,7 @@ nvcc compiles a source for sm_90a at its first use, into csrc/build/,
 under a name keyed by a hash of the source and the flags, and keeps the
 compiler's report (registers, spills, shared memory per kernel) beside
 the library with the suffix .log. Importing this module builds nothing.
+The wrappers count their launches through count_launch.
 """
 
 from __future__ import annotations
@@ -16,9 +17,20 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parent.parent / "csrc" / "build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """launches[name] += 1, unless the current stream is capturing a CUDA
+    graph: a launch recorded into a graph runs only when the graph
+    replays, and a count is a kernel that ran (a replay is counted by
+    its caller, as models/rx's rx.graph_replays)."""
+    if not torch.cuda.is_current_stream_capturing():
+        launches[name] += 1
 
 
 def compiler() -> str:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..rates import Rate, params_for
+from ..utils import tables
 
 ERASURE = 127
 
@@ -35,16 +36,22 @@ def _pattern(rate: Rate) -> tuple[int, np.ndarray] | None:
     raise ValueError(f"unsupported rel_rate {rel}")
 
 
+@tables.on_device()
+def keep_on(group: int, device: torch.device) -> torch.Tensor:
+    """The kept indices of a group of `group` coded bits, int64 on device."""
+    return torch.from_numpy(_KEEP[group]).to(device, torch.int64)
+
+
 def puncture(coded: torch.Tensor, rate: Rate) -> torch.Tensor:
     """(..., n) coded bits -> punctured bits (n a multiple of the group)."""
     pat = _pattern(rate)
     if pat is None:
         return coded
-    group, keep = pat
+    group, _ = pat
     n = coded.shape[-1]
     groups = coded[..., : n - n % group].reshape(*coded.shape[:-1], -1, group)
-    keep_t = torch.from_numpy(keep).to(coded.device)
-    return groups[..., keep_t].reshape(*coded.shape[:-1], -1)
+    return groups[..., keep_on(group, coded.device)].reshape(
+        *coded.shape[:-1], -1)
 
 
 def depuncture(soft: torch.Tensor, rate: Rate) -> torch.Tensor:
@@ -58,5 +65,5 @@ def depuncture(soft: torch.Tensor, rate: Rate) -> torch.Tensor:
         *soft.shape[:-1], -1, len(keep))
     out = torch.full(groups.shape[:-1] + (group,), ERASURE,
                      dtype=soft.dtype, device=soft.device)
-    out[..., torch.from_numpy(keep).to(soft.device)] = groups
+    out[..., keep_on(group, soft.device)] = groups
     return out.reshape(*soft.shape[:-1], -1)

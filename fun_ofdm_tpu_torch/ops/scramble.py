@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tables
+
 SEED = 93
 
 
@@ -33,10 +35,15 @@ def keystream(n: int) -> np.ndarray:
     return np.resize(_keystream_period(), n)
 
 
+@tables.on_device(maxsize=64)
+def keystream_on(n: int, device: torch.device) -> torch.Tensor:
+    """keystream(n) as an int32 tensor on device."""
+    return torch.from_numpy(keystream(n)).to(device)
+
+
 def scramble_bytes(data: torch.Tensor) -> torch.Tensor:
     """XOR the keystream bit into the LSB of each byte of (..., n)."""
-    ks = torch.from_numpy(keystream(data.shape[-1])).to(data.device)
-    return data.to(torch.int32) ^ ks
+    return data.to(torch.int32) ^ keystream_on(data.shape[-1], data.device)
 
 
 descramble_bytes = scramble_bytes  # self-inverse

@@ -14,7 +14,8 @@ decode_data_anyrate_p runs for CPU tensors; for CUDA tensors it calls
 `softbits` here.
 `softbits` checks its tensors, launches on the current CUDA stream without
 a host synchronisation, raises when the launch fails, and counts its calls
-in `launches` (one launch a call). The per-rate parameters are built on the
+in `launches` (one launch a call; none while a CUDA graph is being
+captured, nvcc.count_launch). The per-rate parameters are built on the
 host once per (rates, max_length) and passed by value: no copy to the card.
 """
 
@@ -154,7 +155,7 @@ def softbits(samples, rates: tuple[Rate, ...], ridx: torch.Tensor,
     if err == -1:
         raise ValueError(f"ofdm_softbits takes 1 to {MAX_RATES} rates and "
                          f"rows of a multiple of 4, not {row}")
-    launches["softbits"] += 1
+    nvcc.count_launch(launches, "softbits")
     if err:
         raise RuntimeError(f"ofdm_softbits launch failed: CUDA error {err}")
     return out

@@ -10,7 +10,8 @@ interface, at first use, into csrc/build/ (keyed by a hash of the source
 and flags); importing this module builds nothing. Each wrapper checks its
 tensors, launches on the current CUDA stream, raises when the launch
 fails, and counts its calls in `launches` (one per call, also where a
-call is several kernel launches, as chainback's three).
+call is several kernel launches, as chainback's three; a call recorded
+into a CUDA graph being captured is not counted, nvcc.count_launch).
 
 What bounds them on the H100, and what the design does (the note at the
 top of csrc/viterbi.cu has the detail):
@@ -155,7 +156,7 @@ def acs(soft: torch.Tensor, steps: torch.Tensor,
         err = lib.viterbi_acs(soft.data_ptr(), steps.data_ptr(),
                               init.data_ptr(), dec.data_ptr(), bsz, width,
                               total, _stream(soft.device))
-    launches["viterbi_acs"] += 1
+    nvcc.count_launch(launches, "viterbi_acs")
     if err:
         raise RuntimeError(f"viterbi_acs launch failed: CUDA error {err}")
     return dec
@@ -193,7 +194,7 @@ def chainback(dec: torch.Tensor, nbits: int) -> torch.Tensor:
             None if maps is None else maps.data_ptr(),
             None if starts is None else starts.data_ptr(), bsz,
             nbits + K - 1, _stream(dec.device))
-    launches["viterbi_chainback"] += 1
+    nvcc.count_launch(launches, "viterbi_chainback")
     if err:
         raise RuntimeError(f"viterbi_chainback launch failed: CUDA error {err}")
     return out.T
@@ -249,7 +250,7 @@ def blocked_decode(soft: torch.Tensor, steps: torch.Tensor, geo):
             ok.data_ptr(), overlaps.data_ptr(), frames, width, geo.n_blocks,
             geo.nbits, geo.tb, geo.wf, geo.win, geo.ov, geo.trim,
             _stream(dev))
-    launches["viterbi_blocked_decode"] += 1
+    nvcc.count_launch(launches, "viterbi_blocked_decode")
     if err:
         raise RuntimeError(
             f"viterbi_blocked_decode launch failed: CUDA error {err}")
@@ -278,7 +279,7 @@ def acs_ablate(soft: torch.Tensor, steps: torch.Tensor, init: torch.Tensor,
             soft.data_ptr(), steps.data_ptr(), init.data_ptr(),
             None if dec is None else dec.data_ptr(), final.data_ptr(), bsz,
             width, total, ABLATE_MODES.index(mode), _stream(soft.device))
-    launches["viterbi_acs_ablate"] += 1
+    nvcc.count_launch(launches, "viterbi_acs_ablate")
     if err:
         raise RuntimeError(
             f"viterbi_acs_ablate launch failed: CUDA error {err}")

@@ -63,6 +63,11 @@ The spans, by layer (the names of PERF.md's list of layers):
                     rate (on the card one kernel launch; on the CPU one
                     all-modulation demodulation and a table gather)
   viterbi.exact, viterbi.blocked   the CUDA Viterbi's C entry points
+  Inside a capture call's rx.decode on the card, rx.anyrate_sync,
+  ppdu.anyrate_coded and viterbi.exact open only on a key's first call
+  (rx.decode_eager, rx.graph_captures: the eager decode, then the
+  capture's pass); a replay (rx.graph_replays) runs none of that Python
+  and opens no span inside rx.decode.
 
 The counters, all known on the host (no sync):
 
@@ -73,6 +78,17 @@ The counters, all known on the host (no sync):
                        csrc/softbits.cu built (ops/softbits_cuda): equal
                        to anyrate.slots on the card, never counted on the
                        CPU
+  rx.decode_eager      capture calls on the card whose decode ran eagerly:
+                       a key's first call (models/rx.capture_call), and
+                       every call of a dtype that takes no graph
+  rx.graph_captures    CUDA graphs of the decode captured: one on a key's
+                       first call, after its eager decode
+  rx.graph_replays     capture calls on the card that replayed the graph
+                       (every later call of the key)
+  None of the three is counted on the CPU; a capture call on the card
+  counts rx.decode_eager or rx.graph_replays. The anyrate.* counts of a
+  capture call are made once a call, outside the decode, whether it runs
+  eagerly or replays (rx.Decode.count).
 """
 
 from __future__ import annotations

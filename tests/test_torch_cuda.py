@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from fun_ofdm_tpu_torch.config import ChainParams
-from fun_ofdm_tpu_torch.models import frontend, tx
+from fun_ofdm_tpu_torch.models import frontend, rx, tx
 from fun_ofdm_tpu_torch.ops import (convcode, viterbi, viterbi_ab,
                                     viterbi_blocked, viterbi_cuda)
 from fun_ofdm_tpu_torch.rates import Rate
@@ -226,7 +226,10 @@ def test_viterbi_spans_on_the_card(cuda_device):
     """With the tracer on, the CUDA Viterbi's entry points record their
     spans: viterbi.exact inside the capture's rx.decode, viterbi.blocked
     inside the chain's; the chain's waits are chain.wait spans. The
-    packets equal the untraced run's."""
+    packets equal the untraced run's. The traced capture call is its
+    shape's first, which decodes eagerly and then captures the decode's
+    CUDA graph (models/rx.capture_call): it counts rx.decode_eager and
+    rx.graph_captures."""
     rate, length = Rate.RATE_3_4_QAM16, 100
     payload = torch.from_numpy(np.random.default_rng(8).integers(
         0, 256, (2, length), dtype=np.uint8))
@@ -256,13 +259,16 @@ def test_viterbi_spans_on_the_card(cuda_device):
     trace.take()
     want = run()
     assert want[0] == 2 and [s for _, s in want[1]] == [700, 9000]
+    rx._graphs.clear()
     trace.enable()
     try:
         got = run()
     finally:
         trace.disable()
     spans, counters = trace.take()
-    assert got == want and counters == {"dropped": 0}
+    assert got == want
+    assert counters == {"dropped": 0, "rx.decode_eager": 1,
+                        "rx.graph_captures": 1}
 
     def parent(s):
         return spans[s.parent].name if s.parent >= 0 else None
