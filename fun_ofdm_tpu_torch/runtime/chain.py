@@ -712,6 +712,9 @@ class ReceiverChain:
             bucket = next(b for b in DECODE_BUCKETS if b >= fpart.size)
             padded = np.full(bucket, fpart[0], np.int64)
             padded[:fpart.size] = fpart
+            trace.count("chain.decode_jobs", 1)
+            trace.count("chain.decode_slots", bucket)
+            trace.count("chain.decode_frames", fpart.size)
             with trace.span("rx.decode", gpos):
                 out = self._decode_fn(rate, bucket)(
                     win[0], win[1], torch.from_numpy(padded).to(self.device))
@@ -719,11 +722,17 @@ class ReceiverChain:
                              fpart.copy(), _Fetch(out, gpos)))
 
     def _dispatch_decodes(self, gpos, win, off, chs, starts, fields,
-                          jobs) -> None:
+                          lengths, jobs) -> None:
         """Queue the payload decodes of one superstep's owned frames (all
         channels together): one job per length class in universal mode,
-        one per rate otherwise."""
+        one per rate otherwise. In universal mode, with the tracer on,
+        count the data symbols the frames' headers call for
+        (anyrate.symbols_needed)."""
         if self.decode_mode == "universal":
+            if trace.enabled():
+                trace.count("anyrate.symbols_needed", sum(
+                    params_for(self._valid_fields[int(f)]).num_symbols(int(n))
+                    for f, n in zip(fields, lengths)))
             for ci, cls in enumerate(self._classes):
                 sel = np.array([self._field_class.get(int(f)) == ci
                                 for f in fields])
@@ -820,7 +829,7 @@ class ReceiverChain:
                         hs = _Fetch(full).numpy().reshape(self.channels,
                                                           _HDR_ROWS, cap)
                 jobs: list = []
-                sel_chs, sel_starts, sel_fields = [], [], []
+                sel_chs, sel_starts, sel_fields, sel_lengths = [], [], [], []
                 for ch in range(self.channels):
                     starts, valid, fields, lengths, header_ok = hs[ch, :5]
                     header_ok = header_ok.astype(bool)
@@ -862,13 +871,14 @@ class ReceiverChain:
                         sel_chs.append(np.full(idx.size, ch, np.int32))
                         sel_starts.append(starts[idx].astype(np.int32))
                         sel_fields.append(fields[idx])
+                        sel_lengths.append(lengths[idx])
                 if sel_chs:
                     # the owned region starts at window index `off` (0 for a
                     # superstep)
                     self._dispatch_decodes(
                         gpos, win, off, np.concatenate(sel_chs),
                         np.concatenate(sel_starts), np.concatenate(sel_fields),
-                        jobs)
+                        np.concatenate(sel_lengths), jobs)
                 if jobs:
                     self._dec_q.append((gpos, win, jobs))
 

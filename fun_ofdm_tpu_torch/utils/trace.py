@@ -89,6 +89,14 @@ The counters, all known on the host (no sync):
   counts rx.decode_eager or rx.graph_replays. The anyrate.* counts of a
   capture call are made once a call, outside the decode, whether it runs
   eagerly or replays (rx.Decode.count).
+  chain.decode_jobs    the chain's bucketed payload decodes (one a
+                       bucket; a guard's exact re-decode not counted)
+  chain.decode_slots   the slots of those buckets, padding included
+  chain.decode_frames  the owned frames among them
+  anyrate.symbols_needed   in the chain's universal mode, the data
+                       symbols the dispatched frames' headers call for
+                       (num_symbols of each header's rate and length):
+                       anyrate.symbols over it is the extraction's waste
 """
 
 from __future__ import annotations
@@ -184,6 +192,12 @@ def count(name: str, n: int) -> None:
     """Add n to counter `name` while the tracer is on; off, do nothing."""
     if _enabled:
         _counts[name] = _counts.get(name, 0) + n
+
+
+def enabled() -> bool:
+    """Whether the tracer is on: a count that costs host work to compute
+    is computed only then."""
+    return _enabled
 
 
 def enable() -> None:

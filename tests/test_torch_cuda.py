@@ -229,7 +229,8 @@ def test_viterbi_spans_on_the_card(cuda_device):
     packets equal the untraced run's. The traced capture call is its
     shape's first, which decodes eagerly and then captures the decode's
     CUDA graph (models/rx.capture_call): it counts rx.decode_eager and
-    rx.graph_captures."""
+    rx.graph_captures; the chain counts its decode buckets
+    (chain.decode_*)."""
     rate, length = Rate.RATE_3_4_QAM16, 100
     payload = torch.from_numpy(np.random.default_rng(8).integers(
         0, 256, (2, length), dtype=np.uint8))
@@ -267,8 +268,10 @@ def test_viterbi_spans_on_the_card(cuda_device):
         trace.disable()
     spans, counters = trace.take()
     assert got == want
+    # the chain's dispatch: two lone frames, one bucket of 4 slots each
     assert counters == {"dropped": 0, "rx.decode_eager": 1,
-                        "rx.graph_captures": 1}
+                        "rx.graph_captures": 1, "chain.decode_jobs": 2,
+                        "chain.decode_slots": 8, "chain.decode_frames": 2}
 
     def parent(s):
         return spans[s.parent].name if s.parent >= 0 else None

@@ -231,7 +231,10 @@ def test_chain_tree_and_same_packets(tracer):
     got_pkts, got_stats = _run_chain()
     spans, counters = tracer.take()
     assert (got_pkts, got_stats) == (want_pkts, want_stats)
-    assert counters == {"dropped": 0}
+    # the dispatch's counters: two lone frames, one bucket of 4 slots
+    # each; a single-rate chain counts no anyrate.* (universal mode only)
+    assert counters == {"dropped": 0, "chain.decode_jobs": 2,
+                        "chain.decode_slots": 8, "chain.decode_frames": 2}
     assert "time_headers_s" not in got_stats
     assert "time_decode_s" not in got_stats
 
